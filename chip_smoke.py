@@ -1,0 +1,512 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; a failure in any of them exits non-zero:
+
+1. env      — the card's name and power limit (nvidia-smi), torch and CUDA
+              versions;
+2. build    — builds the hand-written kernels from ``src/repro_torch/kernels
+              /csrc`` (one ``nvcc`` per source, all in parallel) and prints the
+              build time;
+3. kernels  — each kernel against its plain PyTorch version on the card, at
+              the main path's bucket shapes, with the tolerance stated per
+              check; ``ms`` and ``library_ms`` are device time per call (30
+              calls queued behind a spin kernel, CUDA events), ``plain_ms``
+              the time of one call of the plain version, host launches
+              included (it is a loop of small torch ops);
+4. main     — the main path, ``HamletRuntime(..., backend="cuda",
+              micro_batch=16, plan_cache=True, fold_exec=True).run(...)``, on
+              the ``overload_64plus_pred_full`` configuration (163,041 events),
+              held against the port's numpy oracle (``backend="np"``), with
+              every kernel's launch count from that run; then the same
+              configuration at 1/20 of its rate, whose windows are finite,
+              held the same way; then the full run under ``torch.profiler``
+              for the device's busy share;
+5. cli      — the port's ``launch.hamlet_service`` default mode on the card,
+              held against ``backend="np"``.
+
+The last three lines of standard output are the kernels' JSON record, the
+card's ``name, power.limit`` as nvidia-smi prints them, and
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
+checkout of the repository, the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM published peaks (NVIDIA data sheet; at the 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float64": 67e12,   # FP64 tensor-core rate: the type's peak
+                  "float32": 67e12,   # float32 outside the tensor cores
+                  "int32": 67e12}     # taken at the float32 rate
+
+MAIN_CONFIG = "overload_64plus_pred_full"
+RTOL_MAIN = 1e-9        # finite window values, cuda vs np (stated by the run)
+RTOL_SUM = 1e-12        # SUM/AVG in the cli phase: kernels reorder sums
+# the main configuration at 1/20 of its rate (8,241 events): every window
+# of the full run saturates past f64, every window of this cut is finite,
+# and it launches both kernels, so it holds their finite values end to end
+FINITE_CUT = 1000
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# --------------------------------------------------------------------------
+# helpers
+# --------------------------------------------------------------------------
+
+
+def device_ms(torch, fn, launches: int = 30, reps: int = 5,
+              warmup: int = 3) -> float:
+    """Device time of one call: ``launches`` calls enqueued back to back
+    behind a spin kernel (``torch.cuda._sleep``), so the card runs them
+    without waiting for the host, timed with CUDA events around the batch
+    and divided by the count; the median of ``reps`` such batches."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)       # ~25 ms: covers the enqueueing
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times)
+
+
+def wall_ms(torch, fn, reps: int = 20, warmup: int = 2) -> float:
+    """Time of one call as its caller sees it, host launches included: the
+    median of ``reps`` calls, each between CUDA events on an idle card."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def compare(np, got, want) -> dict:
+    """Max abs / rel error on the finite region and the non-finite pattern
+    (NaN, +inf, -inf positions) of ``got`` against ``want``."""
+    g = got.detach().cpu().double().numpy()
+    w = want.detach().cpu().double().numpy()
+    fin = np.isfinite(w) & np.isfinite(g)
+    pattern = all(np.array_equal(f(g), f(w))
+                  for f in (np.isnan, np.isposinf, np.isneginf))
+    diff = np.abs(g[fin] - w[fin])
+    return {"max_abs_err": float(diff.max()) if diff.size else 0.0,
+            "max_rel_err": float((diff / (1.0 + np.abs(w[fin]))).max())
+            if diff.size else 0.0,
+            "nonfinite_equal": bool(pattern),
+            "bitwise_equal": bool(pattern and np.array_equal(g[fin], w[fin])),
+            "nonfinite": int((~np.isfinite(w)).sum())}
+
+
+def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --------------------------------------------------------------------------
+# phases
+# --------------------------------------------------------------------------
+
+
+def phase_env(torch) -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"[env] card: {card}")
+    log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} device "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    return card
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    lib = _build.load()
+    dt = time.perf_counter() - t0
+    regs = [ln.strip() for ln in lib.ptxas_log.splitlines()
+            if "registers" in ln]
+    log(f"[build] {lib.path.name}: {dt:.2f} s (nvcc {lib.build_s:.2f} s)")
+    for ln in regs:
+        log(f"[build] ptxas: {ln}")
+    return lib
+
+
+def _masked_case(torch, np, rng, dev, nb, b, d, dtype, kind):
+    if kind == "ones":
+        mask = np.tril(np.ones((nb, b, b)), -1)
+        base = np.ones((nb, b, d))
+    elif kind == "f32":
+        mask = (np.tril(rng.random((nb, b, b)) < 0.3, -1)
+                * rng.uniform(0.0, 0.05, (nb, b, b)))
+        base = rng.standard_normal((nb, b, d))
+    elif kind == "int":
+        mask = np.tril(rng.random((nb, b, b)) < 0.05, -1)
+        base = rng.integers(0, 3, (nb, b, d))
+    elif kind == "sparse":
+        mask = np.tril(rng.random((nb, b, b)) < 0.002, -1)
+        base = rng.integers(0, 2, (nb, b, d))
+    else:  # random 0/1
+        mask = np.tril(rng.random((nb, b, b)) < 0.5, -1)
+        base = rng.integers(0, 2, (nb, b, d))
+    return (torch.as_tensor(base, dtype=dtype, device=dev),
+            torch.as_tensor(mask, dtype=dtype, device=dev))
+
+
+def phase_kernels(torch, np) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.hamlet_dense import dense_propagate_cuda
+    from repro_torch.kernels.hamlet_propagate import \
+        masked_prefix_propagate_cuda
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(0)
+    f64, f32, i32 = torch.float64, torch.float32, torch.int32
+    entries = {}
+
+    # masked prefix propagation: (name, shape, dtype, mask kind, tolerance)
+    checks = []
+    cases = [("random 0/1 mask", (78, 313, 2), f64, "random", 1e-12),
+             ("all-ones mask (saturates)", (1, 1100, 2), f64, "ones", 1e-12),
+             ("random mask, f32", (78, 313, 2), f32, "f32", 1e-5),
+             ("random 0/1 mask, int32 (exact)", (78, 313, 2), i32, "int", 0.0),
+             ("solved rows in global memory", (1, 6144, 2), f64, "sparse",
+              1e-12)]
+    main = None
+    for name, (nb, b, d), dtype, kind, tol in cases:
+        base, mask = _masked_case(torch, np, rng, dev, nb, b, d, dtype, kind)
+        got = masked_prefix_propagate_cuda(base, mask)
+        torch.cuda.synchronize()
+        want = ref.torch_prefix_propagate_batched(base, mask)
+        c = compare(np, got, want)
+        ok = c["nonfinite_equal"] and (c["bitwise_equal"] if tol == 0.0
+                                       else c["max_rel_err"] <= tol)
+        c.update(case=name, shape=[nb, b, d], dtype=str(dtype)[6:], tol=tol,
+                 ms=device_ms(torch, lambda: masked_prefix_propagate_cuda(
+                     base, mask)))
+        checks.append(c)
+        log(f"[kernels] hamlet_propagate {name} {(nb, b, d)}: {c}")
+        if not ok:
+            fail(f"hamlet_propagate disagrees with its plain version: {name}")
+        if main is None:
+            main = (base, mask, c)
+    base, mask, c = main
+    nb, b, d = base.shape
+    plain_ms = wall_ms(torch, lambda: ref.torch_prefix_propagate_batched(
+        base, mask))
+    neg = -mask
+    lib_ms = device_ms(torch, lambda: torch.linalg.solve_triangular(
+        neg, base, upper=False, unitriangular=True))
+    # base and out once each, and the strict lower triangle of the mask:
+    # the kernel reads no entry on or above the diagonal
+    bms, by = bound(8.0 * (2 * nb * b * d + nb * b * (b - 1) / 2),
+                    2.0 * nb * d * b * (b - 1) / 2, "float64")
+    entries["hamlet_propagate"] = {
+        "name": "hamlet_propagate", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hamlet_propagate.cu",
+        "replaces": "src/repro/kernels/hamlet_propagate.py:69",
+        "shape": [nb, b, d], "dtype": "float64",
+        "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+        "library_call": "torch.linalg.solve_triangular(-mask, base, "
+                        "unitriangular=True)",
+        "checks": checks}
+
+    # dense burst propagation
+    checks = []
+    main = None
+    for name, dtype, scale, tol in (("f64", f64, 3.0, 1e-12),
+                                    ("f32 (saturates)", f32, 1e-4, 1e-5)):
+        base = torch.as_tensor(rng.random((485, 512, 2)) * scale, dtype=dtype,
+                               device=dev)
+        got = dense_propagate_cuda(base)
+        torch.cuda.synchronize()
+        want = ref.prefix_propagate_dense_torch_batched(base)
+        c = compare(np, got, want)
+        ok = c["nonfinite_equal"] and c["max_rel_err"] <= tol
+        c.update(case=name, shape=list(base.shape), dtype=str(dtype)[6:],
+                 tol=tol, ms=device_ms(torch, lambda: dense_propagate_cuda(
+                     base)))
+        checks.append(c)
+        log(f"[kernels] hamlet_dense {name}: {c}")
+        if not ok:
+            fail(f"hamlet_dense disagrees with its plain version: {name}")
+        if main is None:
+            main = (base, c)
+    base, c = main
+    nb, b, d = base.shape
+    plain_ms = wall_ms(torch, lambda: ref.prefix_propagate_dense_torch_batched(
+        base))
+    # the library's form of the same function: a unit-lower solve against
+    # the all-ones strictly lower mask (timed here only; the port never
+    # calls it)
+    neg = torch.tril(torch.ones(b, b, dtype=f64, device=dev), -1).neg()
+    neg = neg.expand(nb, b, b).contiguous()
+    lib = torch.linalg.solve_triangular(neg, base, upper=False,
+                                        unitriangular=True)
+    lc = compare(np, dense_propagate_cuda(base), lib)
+    log(f"[kernels] hamlet_dense f64 against solve_triangular: {lc}")
+    lib_ms = device_ms(torch, lambda: torch.linalg.solve_triangular(
+        neg, base, upper=False, unitriangular=True))
+    del neg, lib
+    bms, by = bound(8.0 * 2 * nb * b * d, 3.0 * nb * b * d, "float64")
+    entries["hamlet_dense"] = {
+        "name": "hamlet_dense", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hamlet_dense.cu",
+        "replaces": "src/repro/kernels/hamlet_dense.py:54",
+        "shape": [nb, b, d], "dtype": "float64",
+        "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+        "library_call": "torch.linalg.solve_triangular(-tril(ones(b, b), -1)"
+                        ", base, unitriangular=True)",
+        "checks": checks}
+    return entries
+
+
+def main_config(events_per_minute: int = 20000):
+    """``overload_64plus_pred_full``: the full-size overload_64plus stream
+    of benchmarks/bench_e2e.py (20,000 ev/min for 6 min, ramp to 1.5x, one
+    4x flash crowd) under paper workload 1 with Kleene predicates on every
+    third query, DynamicPolicy, K = 16.  ``events_per_minute`` cuts the
+    rate and nothing else (see ``FINITE_CUT``)."""
+    from repro_torch.core.optimizer import DynamicPolicy
+    from repro_torch.core.pattern import EventType, Kleene, Seq
+    from repro_torch.core.query import Pred, Query, Workload, count_star
+    from repro_torch.streams.generator import (RIDESHARING_SCHEMA,
+                                               OverloadStreamConfig,
+                                               overload_stream)
+
+    travel = EventType("Travel")
+    heads = ("Request", "Pickup", "Dropoff")
+    qs = []
+    for i in range(8):
+        preds = ({"Travel": [Pred("speed", "<", 4.0 + i % 5)]}
+                 if i % 3 == 2 else None)
+        qs.append(Query(f"q{i}", Seq(EventType(heads[i % 3]), Kleene(travel)),
+                        aggs=(count_star(),), preds=preds, within=60,
+                        slide=15))
+    wl = Workload(RIDESHARING_SCHEMA, qs)
+    stream = overload_stream(OverloadStreamConfig(
+        schema=RIDESHARING_SCHEMA, base_events_per_minute=events_per_minute,
+        minutes=6, ramp_to=1.5, flash_crowds=((180, 10, 4.0),), n_groups=1,
+        burstiness=0.9, type_weights=(1, 1, 6, 1, 1, 1), seed=7))
+    return wl, stream, DynamicPolicy
+
+
+def hold(np, got: dict, want: dict, rtol_of, what: str) -> tuple[int, int]:
+    """Hold window results against the oracle's: equal keys, equal
+    non-finite pattern, finite values within ``rtol_of(agg)``.  Returns the
+    number of bitwise-equal windows and the number of finite values held."""
+    from repro_torch.core.engine import vals_equal
+
+    if got.keys() != want.keys():
+        fail(f"{what}: window keys differ ({len(got)} vs {len(want)})")
+    for k, w in want.items():
+        g = got[k]
+        if g.keys() != w.keys():
+            fail(f"{what}: aggregates differ at {k}")
+        for a, wv in w.items():
+            gv = g[a]
+            if (math.isnan(gv), math.isinf(gv) and gv > 0,
+                    math.isinf(gv) and gv < 0) != (
+                    math.isnan(wv), math.isinf(wv) and wv > 0,
+                    math.isinf(wv) and wv < 0):
+                fail(f"{what}: non-finite pattern differs at {k} {a}: "
+                     f"{gv} vs {wv}")
+            if math.isfinite(wv) and abs(gv - wv) > rtol_of(a) * abs(wv):
+                fail(f"{what}: {k} {a} = {gv}, oracle {wv}")
+    finite = sum(math.isfinite(v) for r in want.values() for v in r.values())
+    return sum(vals_equal(got[k], want[k]) for k in want), finite
+
+
+def _run(torch, HamletRuntime, wl, stream, policy, backend):
+    rt = HamletRuntime(wl, policy=policy(), backend=backend, micro_batch=16,
+                       plan_cache=True, fold_exec=True)
+    t0 = time.perf_counter()
+    res = rt.run(stream)
+    if backend != "np":
+        torch.cuda.synchronize()
+    return res, rt, time.perf_counter() - t0
+
+
+def phase_main(torch, np) -> dict:
+    from repro_torch.core.engine import HamletRuntime
+    from repro_torch.kernels.hamlet_dense import dense_propagate_cuda
+    from repro_torch.kernels.hamlet_propagate import \
+        masked_prefix_propagate_cuda
+
+    wl, stream, policy = main_config()
+    log(f"[main] {MAIN_CONFIG}: {len(stream)} events, {len(wl.queries)} "
+        f"queries, K=16")
+    masked_prefix_propagate_cuda.launches = 0
+    dense_propagate_cuda.launches = 0
+    got, rt, wall = _run(torch, HamletRuntime, wl, stream, policy, "cuda")
+    launches = {"hamlet_propagate": masked_prefix_propagate_cuda.launches,
+                "hamlet_dense": dense_propagate_cuda.launches}
+    s = rt.stats
+    split = {k: round(v, 4) for k, v in s.phase_split().items()}
+    log(f"[main] cuda: wall {wall:.3f} s, {len(stream) / wall:.0f} events/s, "
+        f"windows {len(got)}, panes {s.panes}, phase seconds plan "
+        f"{s.plan_s:.3f} execute {s.execute_s:.3f} finalize "
+        f"{s.finalize_s:.3f} fold {s.fold_s:.3f} (split {split}), "
+        f"executor launches {rt.executor.launches}, fold launches "
+        f"{rt.fold_exec.launches}, kernel launches {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"main path never launched {name}")
+    want, rt_np, wall_np = _run(torch, HamletRuntime, wl, stream, policy, "np")
+    log(f"[main] np oracle: wall {wall_np:.3f} s, "
+        f"{len(stream) / wall_np:.0f} events/s")
+    if not want:
+        fail("main path emitted no windows")
+    same, finite = hold(np, got, want, lambda a: RTOL_MAIN, "main path")
+    nonfinite = sum(len(r) for r in want.values()) - finite
+    log(f"[main] held against np: {len(want)} windows, {same} bitwise equal, "
+        f"{finite} finite values within rtol {RTOL_MAIN}, {nonfinite} "
+        f"non-finite (saturated) values with the same pattern")
+
+    # the same configuration at FINITE_CUT ev/min: finite windows through
+    # both kernels
+    wl_c, stream_c, _ = main_config(FINITE_CUT)
+    masked_prefix_propagate_cuda.launches = 0
+    dense_propagate_cuda.launches = 0
+    got_c, _, wall_c = _run(torch, HamletRuntime, wl_c, stream_c, policy,
+                            "cuda")
+    cut_launches = {"hamlet_propagate": masked_prefix_propagate_cuda.launches,
+                    "hamlet_dense": dense_propagate_cuda.launches}
+    want_c, _, _ = _run(torch, HamletRuntime, wl_c, stream_c, policy, "np")
+    same_c, finite_c = hold(np, got_c, want_c, lambda a: RTOL_MAIN,
+                            "finite cut")
+    log(f"[main] finite cut ({FINITE_CUT} ev/min, {len(stream_c)} events): "
+        f"wall {wall_c:.3f} s, kernel launches {cut_launches}; held against "
+        f"np: {len(want_c)} windows, {same_c} bitwise equal, {finite_c} "
+        f"finite values within rtol {RTOL_MAIN}")
+    if finite_c == 0:
+        fail("finite cut: no finite value was compared")
+    for name, n in cut_launches.items():
+        if n <= 0:
+            fail(f"finite cut never launched {name}")
+
+    # the same run under the profiler: device busy share and kernel times
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, wall_p = _run(torch, HamletRuntime, wl, stream, policy, "cuda")
+    # device-side activities only (kernels, copies); a CPU op such as
+    # aten::copy_ reports its copy's time again as its own device time
+    dev_us = 0.0
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = ev.self_device_time_total
+        if t > 0:
+            dev_us += t
+            rows.append((t, ev.key, ev.count))
+    rows.sort(reverse=True)
+    log(f"[main] profiled run: wall {wall_p:.3f} s, device time "
+        f"{dev_us / 1e6:.4f} s, busy share {dev_us / 1e6 / wall_p:.4f}")
+    for t, key, n in rows[:8]:
+        log(f"[main]   {t / 1e3:10.3f} ms  x{n:<6d} {key[:90]}")
+    return {"launches": launches, "wall_s": wall, "events": len(stream),
+            "windows": len(want), "bitwise": same}
+
+
+def phase_cli(torch, np) -> None:
+    from repro_torch.launch import hamlet_service
+
+    runs = {}
+    for backend in ("cuda", "np"):
+        args = hamlet_service.parse_args(["--backend", backend])
+        res, rt, batch, dt = hamlet_service.run_default(args)
+        runs[backend] = res
+        log(f"[cli] {backend}: {len(batch)} events, {len(res)} windows, "
+            f"wall {dt:.3f} s, device {rt.device}")
+    same, finite = hold(np, runs["cuda"], runs["np"],
+                        lambda a: 0.0 if a.startswith("COUNT") else RTOL_SUM,
+                        "cli")
+    log(f"[cli] held against np: COUNT exact, SUM/AVG rtol {RTOL_SUM}; "
+        f"{finite} finite values; {same} of {len(runs['np'])} windows "
+        f"bitwise equal (vals_equal)")
+
+
+def main() -> None:
+    try:
+        import numpy as np
+        import torch
+    except ImportError as e:
+        fail(f"needs torch and numpy: {e}")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this smoke run needs an NVIDIA GPU")
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
+             "a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    # the plain versions' float32 matmuls run in full float32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+
+    card = phase_env(torch)
+    phase_build()
+    kernels = phase_kernels(torch, np)
+    main_res = phase_main(torch, np)
+    phase_cli(torch, np)
+
+    leaked = sorted(m for m in sys.modules
+                    if m == "jax" or m.startswith(("jax.", "repro."))
+                    or m == "repro")
+    if leaked:
+        fail(f"imported the JAX package or jax: {leaked[:5]}")
+    for name, e in kernels.items():
+        e["launches"] = main_res["launches"][name]
+    log(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": list(kernels.values()),
+                      "card": card, "config": MAIN_CONFIG}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

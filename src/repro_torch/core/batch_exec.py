@@ -1,0 +1,187 @@
+"""Pane-batch executor: ragged propagation jobs -> few bucketed launches.
+
+The engine's plan phase walks every burst in a pane and *submits* its
+propagation problems here instead of solving them inline; ``flush`` then
+executes the backlog with one launch per size bucket:
+
+* **dense jobs** (``mask is None``: strictly-lower all-ones adjacency) share
+  a constant basis width per component, so they bucket by
+  ``(next_pow2(b), d)`` with zero-row padding — padding is exact for the
+  dense closed form — and run as one ``propagate_dense_batched`` call;
+* **masked jobs** bucket by exact ``(b, d)`` (stacking needs equal shapes,
+  and exact shapes keep each slice bitwise identical to the per-burst call)
+  and run as one ``propagate_batched`` call per bucket;
+* tiny masked jobs (``b <= 24`` on the numpy backend) keep the exact
+  row-by-row oracle per item, matching the per-burst path bit for bit.
+
+``batched=False`` degrades to the legacy one-launch-per-burst execution —
+the differential tests assert the two modes agree bitwise.
+
+Residency rules (cross-pane micro-batching support):
+
+* **numpy backend** — the stacked *input* staging arrays are reused across
+  flushes (one buffer per bucket shape, grown to the high-water batch size),
+  so a steady-state stream stops allocating per pane.  Outputs are always
+  freshly allocated: job results are views into them and must survive later
+  flushes.
+* **torch/cuda backends** — each bucket is stacked in a fresh host buffer
+  and moved to the executor's ``device`` once, by a synchronous copy (so no
+  host buffer can be reused while a copy is in flight); every bucket of a
+  flush is launched before any result is pulled back, and the whole flush
+  then syncs with **one** ``ops.device_get_all`` call, keeping bucket
+  outputs device-resident for the duration of the flush.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..kernels import ops
+from ..obs.metrics import OCCUPANCY_BUCKETS
+
+__all__ = ["PropagateJob", "PaneBatchExecutor"]
+
+# numpy-backend threshold below which the exact row-loop oracle beats the
+# doubling GEMMs for a single burst (mirrors ops.propagate_batched)
+_FAST_MIN_B = 25
+_DENSE_B_MAX = ops.DENSE_B_MAX
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+@dataclass
+class PropagateJob:
+    """One propagation problem: ``mask is None`` marks a dense burst."""
+
+    base: np.ndarray              # [b, d]
+    mask: np.ndarray | None       # [b, b] strictly-lower adjacency
+    result: np.ndarray | None = None
+
+
+class PaneBatchExecutor:
+    def __init__(self, backend: str = "cuda", batched: bool = True,
+                 obs=None, device=None):
+        self.backend = backend
+        # None on the np backend; raises when a missing GPU is asked for
+        self.device = ops.resolve_device(backend, device)
+        self.batched = batched
+        self.obs = obs
+        self._pending: list[PropagateJob] = []
+        # reusable host staging for stacked inputs, keyed by (kind, b, d,
+        # dtype) and grown to the high-water bucket size (numpy backend only;
+        # see the module docstring's residency rules)
+        self._staging: dict[tuple, np.ndarray] = {}
+        self.jobs = 0
+        self.launches = 0
+        self.flushes = 0
+
+    def submit(self, base: np.ndarray,
+               mask: np.ndarray | None = None) -> PropagateJob:
+        job = PropagateJob(np.asarray(base), mask)
+        self._pending.append(job)
+        self.jobs += 1
+        return job
+
+    # -- execution --
+
+    def flush(self) -> None:
+        jobs, self._pending = self._pending, []
+        if not jobs:
+            return
+        self.flushes += 1
+        l0 = self.launches
+        if not self.batched:
+            for j in jobs:
+                self.launches += 1
+                if j.mask is None:
+                    out = ops.propagate_dense(j.base, backend=self.backend,
+                                              device=self.device)
+                else:
+                    out = ops.propagate(j.base, j.mask, backend=self.backend,
+                                        device=self.device)
+                j.result = ops.device_get_all([out])[0]
+            return
+        dense = [j for j in jobs if j.mask is None
+                 and j.base.shape[0] <= _DENSE_B_MAX]
+        masked = [j for j in jobs if j.mask is not None]
+        # oversize "dense" jobs fall back to an explicit all-ones mask
+        for j in jobs:
+            if j.mask is None and j.base.shape[0] > _DENSE_B_MAX:
+                b = j.base.shape[0]
+                j.mask = np.tril(np.ones((b, b)), k=-1)
+                masked.append(j)
+        # launch every bucket, then resolve the whole flush with one host
+        # sync (device backends stay device-resident until here)
+        launched = self._launch_dense(dense) + self._launch_masked(masked)
+        outs = ops.device_get_all([o for _, o in launched])
+        for (bucket, _), arr in zip(launched, outs):
+            for i, j in enumerate(bucket):
+                j.result = arr[i, : j.base.shape[0]]
+        if self.obs is not None:
+            self.obs.observe("batch_exec.launches_per_flush",
+                             self.launches - l0, OCCUPANCY_BUCKETS)
+
+    def _stage(self, kind: str, nb: int, item_shape: tuple,
+               dtype) -> np.ndarray:
+        """A reusable stacked staging buffer (numpy backend only)."""
+        if self.backend != "np":
+            return np.empty((nb,) + item_shape, dtype=dtype)
+        key = (kind,) + item_shape + (np.dtype(dtype),)
+        buf = self._staging.get(key)
+        if buf is None or buf.shape[0] < nb:
+            buf = np.empty((nb,) + item_shape, dtype=dtype)
+            self._staging[key] = buf
+        return buf[:nb]
+
+    def _launch_dense(self, jobs: list[PropagateJob]) -> list:
+        buckets: dict[tuple, list[PropagateJob]] = {}
+        for j in jobs:
+            b, d = j.base.shape
+            buckets.setdefault((_next_pow2(b), d, j.base.dtype), []).append(j)
+        launched = []
+        for (bp, d, dtype), bucket in buckets.items():
+            nb = len(bucket)
+            if self.obs is not None:
+                self.obs.observe("batch_exec.bucket_occupancy", nb,
+                                 OCCUPANCY_BUCKETS)
+            stacked = self._stage("dense", nb, (bp, d), dtype)
+            for i, j in enumerate(bucket):
+                bj = j.base.shape[0]
+                stacked[i, :bj] = j.base
+                stacked[i, bj:] = 0.0
+            self.launches += 1
+            launched.append((bucket, ops.propagate_dense_batched(
+                stacked, backend=self.backend, device=self.device)))
+        return launched
+
+    def _launch_masked(self, jobs: list[PropagateJob]) -> list:
+        from ..kernels import ref
+
+        buckets: dict[tuple, list[PropagateJob]] = {}
+        for j in jobs:
+            buckets.setdefault(j.base.shape + (j.base.dtype,), []).append(j)
+        launched = []
+        for (b, d, dtype), bucket in buckets.items():
+            nb = len(bucket)
+            if self.obs is not None:
+                self.obs.observe("batch_exec.bucket_occupancy", nb,
+                                 OCCUPANCY_BUCKETS)
+            base = self._stage("mbase", nb, (b, d), dtype)
+            mask = self._stage("mmask", nb, (b, b), bucket[0].mask.dtype)
+            for i, j in enumerate(bucket):
+                base[i] = j.base
+                mask[i] = j.mask
+            self.launches += 1
+            if self.backend == "np" and b < _FAST_MIN_B:
+                # stacked row-loop oracle: b row steps for the whole bucket,
+                # each slice bitwise equal to the per-burst call
+                out = ref.numpy_prefix_propagate_batched(base, mask)
+            else:
+                out = ops.propagate_batched(base, mask, backend=self.backend,
+                                            device=self.device)
+            launched.append((bucket, out))
+        return launched

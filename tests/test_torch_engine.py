@@ -1,0 +1,271 @@
+"""The port's engine against the JAX package's, end to end on the CPU.
+
+The port runs on ``backend="torch", device="cpu"`` (the plain PyTorch
+versions of the kernels) and is held against ``repro``'s
+``HamletRuntime(wl, fold_exec=False, plan_cache=False)`` — the sequential
+numpy oracle of ``tests/test_fold_exec.py`` — on inputs carried across with
+``repro_torch.interop``:
+
+* the four named workload streams x micro batch K in {1, 4, 16} x plan
+  cache on/off: COUNT results equal (``vals_equal``);
+* SUM/AVG aggregates within rtol 1e-12 (the torch backend's matmuls may add
+  in another order than numpy's);
+* fold-chain depths {3, 8, 24} and the 1100-event overflow chain, whose
+  saturated windows must carry the same inf/NaN pattern;
+* within the port, the reference's twin contracts exactly: batched equals
+  per-burst, results do not change with K, and a warm flush is one logical
+  launch at any depth.
+"""
+
+import math
+
+import numpy as np
+import pytest
+
+from benchmarks.common import kleene_workload
+from repro.core.engine import HamletRuntime as RefRuntime
+from repro.core.engine import fold_panes as ref_fold_panes
+from repro.core.events import EventBatch as RefBatch
+from repro.core.events import StreamSchema as RefSchema
+from repro.core.pattern import EventType, Kleene, Seq
+from repro.core.query import Query, Workload, agg_min, agg_sum, count_star
+from repro.launch.hamlet_service import \
+    ridesharing_workload as ref_ridesharing_workload
+from repro.streams import generator as RG
+from repro_torch import interop
+from repro_torch.core.engine import HamletRuntime, PaneMicroBatcher, RunStats
+from repro_torch.core.engine import vals_equal
+from repro_torch.core.fold_exec import FoldExecutor
+from repro_torch.streams import generator as PG
+
+KS = (1, 4, 16)
+DEV = dict(backend="torch", device="cpu")
+
+SHAPES = {
+    "ridesharing": dict(kleene_type="Travel",
+                        head_types=["Request", "Pickup", "Dropoff"]),
+    "stock": dict(kleene_type="Quote", head_types=["Buy", "Sell"]),
+    "smarthome": dict(kleene_type="Measure", head_types=["Load", "Work"]),
+    "taxi": dict(kleene_type="Travel", head_types=["Request", "Pickup"]),
+}
+SCHEMAS = {"ridesharing": RG.RIDESHARING_SCHEMA, "stock": RG.STOCK_SCHEMA,
+           "smarthome": RG.SMARTHOME_SCHEMA, "taxi": RG.TAXI_SCHEMA}
+
+
+def port_wl(wl):
+    return interop.workload_from(interop.workload_spec(wl))
+
+
+def port_stream(batch):
+    c = interop.stream_columns(batch)
+    return interop.batch_from(interop.schema_from(c["types"], c["attr_names"]),
+                              c["type_id"], c["time"], c["attrs"], c["group"],
+                              c["seq"])
+
+
+def named_case(name):
+    """``tests/test_fold_exec.py``'s named case: 4 predicated Kleene
+    queries over 2 minutes of the named stream at 250 events/min."""
+    schema = SCHEMAS[name]
+    wl = kleene_workload(schema, 4, **SHAPES[name], within=60, slide=30,
+                         pred_attr=list(schema.attrs)[0])
+    stream = RG.NAMED_STREAMS[name](events_per_minute=250, minutes=2, seed=13)
+    t_end = ((int(stream.time.max()) + 30) // 30) * 30
+    return wl, stream, t_end
+
+
+def assert_held(got, want, tag, rtol=1e-12):
+    """COUNT exact (``vals_equal``); SUM/AVG within ``rtol``; the same
+    non-finite pattern everywhere."""
+    assert got.keys() == want.keys(), tag
+    for k, w in want.items():
+        g = got[k]
+        assert g.keys() == w.keys(), (tag, k)
+        for a, wv in w.items():
+            gv = g[a]
+            if a.startswith("COUNT"):
+                assert vals_equal({a: gv}, {a: wv}), (tag, k, a, gv, wv)
+            elif math.isfinite(wv):
+                assert math.isclose(gv, wv, rel_tol=rtol), (tag, k, a, gv, wv)
+            else:
+                assert gv == wv or (math.isnan(gv) and math.isnan(wv)), (
+                    tag, k, a, gv, wv)
+
+
+def assert_bitwise(got, want, tag):
+    assert got.keys() == want.keys(), tag
+    for k in want:
+        assert vals_equal(got[k], want[k]), (tag, k)
+
+
+# ------------------------------------------------------------ named sweeps
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_named_workloads_match_reference(name):
+    wl, stream, t_end = named_case(name)
+    want = RefRuntime(wl, fold_exec=False, plan_cache=False).run(stream, t_end)
+    pwl, pst = port_wl(wl), port_stream(stream)
+    scanned = False
+    for K in KS:
+        for pc in (False, True):
+            rt = HamletRuntime(pwl, micro_batch=K, plan_cache=pc,
+                               fold_exec=True, **DEV)
+            got = rt.run(pst, t_end)
+            assert_bitwise(got, want, (name, K, pc))
+            scanned |= any(fp.scan is not None
+                           for fp in rt.fold_exec._plans.values())
+    # the device scan program was built and exercised
+    assert scanned, name
+
+
+def test_streams_match_reference():
+    for name in SHAPES:
+        a = RG.NAMED_STREAMS[name](events_per_minute=300, minutes=1, seed=5)
+        b = PG.NAMED_STREAMS[name](events_per_minute=300, minutes=1, seed=5)
+        for col in ("type_id", "time", "attrs", "group"):
+            assert np.array_equal(getattr(a, col), getattr(b, col)), name
+    kw = dict(base_events_per_minute=600, minutes=2, ramp_to=1.5,
+              flash_crowds=((60, 10, 4.0),), n_groups=1, burstiness=0.9,
+              type_weights=(1, 1, 6, 1, 1, 1), seed=7)
+    a = RG.overload_stream(RG.OverloadStreamConfig(
+        schema=RG.RIDESHARING_SCHEMA, **kw))
+    b = PG.overload_stream(PG.OverloadStreamConfig(
+        schema=PG.RIDESHARING_SCHEMA, **kw))
+    for col in ("type_id", "time", "attrs", "group"):
+        assert np.array_equal(getattr(a, col), getattr(b, col))
+
+
+# ------------------------------------------------- chain depths + overflow
+
+SCHEMA = RefSchema(types=("A", "B"), attrs=("v",))
+A, B = EventType("A"), EventType("B")
+
+
+def chain_wl():
+    return Workload(SCHEMA, [
+        Query("q1", Seq(A, Kleene(B)), aggs=(count_star(), agg_sum("B", "v")),
+              within=40, slide=20),
+        Query("q2", Kleene(B), within=40, slide=20),
+    ])
+
+
+def chain_batch(n_bursts, burst_len=1, seed=0):
+    evs = [0]
+    for _ in range(n_bursts):
+        evs.extend([1] * burst_len)
+        evs.append(0)
+    types = np.array(evs, dtype=np.int32)
+    time = np.minimum(np.arange(1, len(types) + 1), 19)
+    vals = np.random.default_rng(seed).uniform(0.5, 2.0, (len(types), 1))
+    return RefBatch(SCHEMA, types, time, vals)
+
+
+@pytest.mark.parametrize("depth", [3, 8, 24])
+def test_chain_depths_match_reference(depth):
+    wl, batch = chain_wl(), chain_batch(depth, burst_len=3, seed=depth)
+    want = RefRuntime(wl, fold_exec=False, plan_cache=False).run(batch, 40)
+    pwl, pb = port_wl(wl), port_stream(batch)
+    for K in KS:
+        got = HamletRuntime(pwl, micro_batch=K, **DEV).run(pb, 40)
+        assert_held(got, want, (depth, K))
+
+
+def test_overflow_chain_matches_reference():
+    # a 1100-event Kleene burst holds ~2^1099 trends: counts saturate past
+    # f64 on the oracle and must saturate identically in the port
+    wl, batch = chain_wl(), chain_batch(1, burst_len=1100)
+    want = RefRuntime(wl, fold_exec=False, plan_cache=False).run(batch, 40)
+    assert any(not np.isfinite(v) for out in want.values()
+               for v in out.values()), "overflow regime not reached"
+    got = HamletRuntime(port_wl(wl), micro_batch=4, **DEV).run(
+        port_stream(batch), 40)
+    assert_bitwise(got, want, "overflow")
+
+
+# ---------------------------------------------- SUM/AVG + negation (CLI)
+
+
+def cli_case():
+    wl = ref_ridesharing_workload(3)
+    stream = RG.ridesharing_stream(events_per_minute=300, minutes=1,
+                                   n_groups=2, seed=3)
+    return wl, stream, 60
+
+
+def test_cli_workload_matches_reference():
+    """Negation, SUM and AVG (the CLI's default workload): COUNT exact and
+    SUM/AVG to 1e-12 on the torch backend against the sequential oracle;
+    the port's np backend bitwise equal to the reference's same path.  (The
+    reference's own stacked fold differs from its sequential replay in the
+    last ulp of some SUM windows here, so bitwise holds path for path.)"""
+    wl, stream, t_end = cli_case()
+    want = RefRuntime(wl, fold_exec=False, plan_cache=False).run(stream, t_end)
+    pwl, pst = port_wl(wl), port_stream(stream)
+    got = HamletRuntime(pwl, micro_batch=4, **DEV).run(pst, t_end)
+    assert_held(got, want, "torch")
+    for fe in (False, True):
+        ref_np = RefRuntime(wl, micro_batch=4, fold_exec=fe).run(stream, t_end)
+        got_np = HamletRuntime(pwl, backend="np", micro_batch=4,
+                               fold_exec=fe).run(pst, t_end)
+        assert_bitwise(got_np, ref_np, ("np", fe))
+
+
+# -------------------------------------------------- within-port contracts
+
+
+def test_batched_equals_per_burst_and_k_invariance():
+    wl, stream, t_end = cli_case()
+    pwl, pst = port_wl(wl), port_stream(stream)
+    base = HamletRuntime(pwl, batch_exec=False, plan_cache=False,
+                         **DEV).run(pst, t_end)
+    for K, be in ((1, True), (4, False), (16, True)):
+        got = HamletRuntime(pwl, batch_exec=be, micro_batch=K,
+                            **DEV).run(pst, t_end)
+        assert_bitwise(got, base, (K, be))
+
+
+def _warm_flush_launches(n_bursts):
+    rt = HamletRuntime(port_wl(chain_wl()), micro_batch=4, **DEV)
+    proc = rt.make_processor(0)
+    batch = port_stream(chain_batch(n_bursts))
+    stats = RunStats()
+
+    def flush():
+        mb = PaneMicroBatcher(rt.executor, k=4, fold_exec=rt.fold_exec)
+        pends = [mb.submit(proc, batch, stats) for _ in range(4)]
+        mb.drain()
+        return [p.finalize() for p in pends]
+
+    first = flush()                       # cold: builds the scan program
+    l0 = rt.fold_exec.launches
+    second = flush()                      # warm: the cached program
+    for a, b in zip(first, second):
+        assert np.array_equal(a, b)
+    assert all(fp.scan is not None for fp in rt.fold_exec._plans.values())
+    rounds = max(len(fp.rounds) for fp in rt.fold_exec._plans.values())
+    return rt.fold_exec.launches - l0, rounds
+
+
+def test_one_launch_per_warm_flush_any_depth():
+    (l_shallow, r_shallow), (l_deep, r_deep) = (
+        _warm_flush_launches(8), _warm_flush_launches(24))
+    assert r_deep > r_shallow >= 3
+    assert l_shallow == l_deep == 1
+
+
+def test_fold_windows_matches_fold_panes():
+    rng = np.random.default_rng(9)
+    C = 5
+    folds = [(rng.random(C), [rng.random((C, C)) for _ in range(n)])
+             for n in (0, 1, 3, 3, 6)]
+    got = FoldExecutor(**DEV).fold_windows(folds)
+    for (u0, Ms), g in zip(folds, got):
+        np.testing.assert_allclose(g, ref_fold_panes(Ms, u0), rtol=1e-12)
+
+
+def test_minmax_not_ported():
+    wl = Workload(SCHEMA, [Query("q", Seq(A, Kleene(B)),
+                                 aggs=(agg_min("B", "v"),))])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        HamletRuntime(port_wl(wl), **DEV)

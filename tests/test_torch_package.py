@@ -1,0 +1,178 @@
+"""Package boundary of the PyTorch/CUDA port.
+
+* every ``repro_torch`` module imports without JAX and without the JAX
+  package (checked in a fresh interpreter, where nothing else has imported
+  them);
+* without a CUDA device the default entry points raise instead of
+  running on the CPU, and ``chip_smoke.py`` exits non-zero, printing no
+  result — in the checkout and alone in a directory;
+* the service CLI's default mode runs on a backend the caller asks for, and
+  its modes that are not ported yet exit with an error.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+
+def _run(args, cwd=ROOT, env_extra=None, timeout=300):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    env.update(env_extra or {})
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+
+
+def test_imports_neither_jax_nor_repro():
+    code = """
+import pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for n in names:
+    __import__(n)
+import repro_torch.launch.hamlet_service
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print(len(names), bad)
+assert not bad, bad
+assert "repro_torch.core.engine" in names and "repro_torch.interop" in names
+"""
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr
+    n = int(r.stdout.split()[0])
+    assert n >= 25, r.stdout
+
+
+def test_default_runtime_needs_a_gpu():
+    _no_cuda()
+    from repro_torch.core.engine import HamletRuntime
+    from repro_torch.core.pattern import EventType, Kleene, Seq
+    from repro_torch.core.query import Query, Workload
+    from repro_torch.streams.generator import RIDESHARING_SCHEMA
+
+    wl = Workload(RIDESHARING_SCHEMA, [
+        Query("q", Seq(EventType("Request"), Kleene(EventType("Travel"))))])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HamletRuntime(wl)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HamletRuntime(wl, backend="torch")
+    with pytest.raises(ValueError):
+        HamletRuntime(wl, backend="cuda", device="cpu")
+    assert HamletRuntime(wl, backend="torch", device="cpu").device.type == \
+        "cpu"
+    assert HamletRuntime(wl, backend="np").device is None
+
+
+@pytest.mark.parametrize("entry", ["PaneBatchExecutor", "FoldExecutor",
+                                   "PaneProcessor"])
+def test_default_executors_need_a_gpu(entry):
+    _no_cuda()
+    from repro_torch.core.batch_exec import PaneBatchExecutor
+    from repro_torch.core.engine import ComponentContext, PaneProcessor
+    from repro_torch.core.fold_exec import FoldExecutor
+    from repro_torch.core.optimizer import DynamicPolicy
+    from repro_torch.core.pattern import EventType, Kleene, Seq
+    from repro_torch.core.query import Query, Workload
+    from repro_torch.streams.generator import RIDESHARING_SCHEMA
+
+    if entry == "PaneProcessor":
+        wl = Workload(RIDESHARING_SCHEMA, [
+            Query("q", Seq(EventType("Request"),
+                           Kleene(EventType("Travel"))))])
+        ctx = ComponentContext(wl.schema, list(wl.atomic))
+        make = lambda **kw: PaneProcessor(ctx, DynamicPolicy(), **kw)
+    else:
+        make = {"PaneBatchExecutor": PaneBatchExecutor,
+                "FoldExecutor": FoldExecutor}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    made = make(backend="torch", device="cpu")
+    assert getattr(made, "executor", made).device.type == "cpu"
+    assert make(backend="np").backend == "np"
+
+
+def _assert_refused(r):
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+    assert not any(ln.startswith("{") for ln in r.stdout.splitlines())
+
+
+def test_chip_smoke_fails_without_gpu():
+    _no_cuda()
+    r = _run([str(ROOT / "chip_smoke.py")])
+    _assert_refused(r)
+    assert "no CUDA device" in r.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       env=env, capture_output=True, text=True, timeout=300)
+    _assert_refused(r)
+
+
+def test_cli_default_mode_on_the_host():
+    r = _run(["-m", "repro_torch.launch.hamlet_service", "--backend", "np",
+              "--minutes", "1", "--events-per-minute", "200"])
+    assert r.returncode == 0, r.stderr
+    assert "backend=np" in r.stdout and "windows=" in r.stdout
+
+
+def test_cli_refuses_unported_modes_and_missing_gpu():
+    from repro_torch.launch import hamlet_service
+
+    for flags in (["--overload"], ["--serve"], ["--shards", "2"],
+                  ["--listen", "127.0.0.1:0"], ["--trace", "x.jsonl"]):
+        with pytest.raises(SystemExit, match="not yet ported"):
+            hamlet_service.main(flags + ["--backend", "np"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            hamlet_service.main(["--minutes", "1"])
+
+
+def test_build_needs_nvcc(tmp_path, monkeypatch):
+    from repro_torch.kernels import _build
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if Path("/usr/local/cuda/bin/nvcc").is_file():
+        pytest.skip("the toolkit is installed at its default location")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
+
+
+def test_interop_round_trip():
+    from repro_torch import interop
+    from repro_torch.launch.hamlet_service import ridesharing_workload
+    from repro_torch.streams.generator import ridesharing_stream
+
+    wl = ridesharing_workload(5)
+    spec = interop.workload_spec(wl)
+    assert json.loads(json.dumps(spec)) is not None     # plain values only
+    again = interop.workload_from(spec)
+    assert [q.name for q in again.atomic] == [q.name for q in wl.atomic]
+    assert again.atomic == wl.atomic
+    s = ridesharing_stream(events_per_minute=100, minutes=1)
+    c = interop.stream_columns(s)
+    t = interop.batch_from(interop.schema_from(c["types"], c["attr_names"]),
+                           c["type_id"], c["time"], c["attrs"], c["group"])
+    assert t.schema == s.schema and (t.attrs == s.attrs).all()
+    assert t.attrs is not s.attrs
