@@ -11,8 +11,9 @@ Phases, in order; a failure in any of them exits non-zero:
               /csrc`` (one ``nvcc`` per source, all in parallel) and prints the
               build time;
 3. kernels  — each kernel against its plain PyTorch version on the card, at
-              the main path's bucket shapes, with the tolerance stated per
-              check; ``ms`` and ``library_ms`` are device time per call (30
+              the main path's bucket shapes and at the masked kernel's
+              edges (d 1-5, b at the 32-row tile edges, 200 blocks, NaN on
+              and above the diagonal), with the tolerance stated per check; ``ms`` and ``library_ms`` are device time per call (30
               calls queued behind a spin kernel, CUDA events), ``plain_ms``
               the time of one call of the plain version, host launches
               included (it is a loop of small torch ops);
@@ -23,7 +24,10 @@ Phases, in order; a failure in any of them exits non-zero:
               every kernel's launch count from that run; then the same
               configuration at 1/20 of its rate, whose windows are finite,
               held the same way; then the full run under ``torch.profiler``
-              for the device's busy share;
+              for the device's busy share; then the masked kernel's launches
+              by shape: the most frequent, the bound summed over all of them
+              against the profiler's total, and every distinct shape timed
+              again alone, costliest first;
 5. cli      — the port's ``launch.hamlet_service`` default mode on the card,
               held against ``backend="np"``.
 
@@ -44,12 +48,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-# H100 SXM published peaks (NVIDIA data sheet; at the 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float64": 67e12,   # FP64 tensor-core rate: the type's peak
-                  "float32": 67e12,   # float32 outside the tensor cores
-                  "int32": 67e12}     # taken at the float32 rate
 
 MAIN_CONFIG = "overload_64plus_pred_full"
 RTOL_MAIN = 1e-9        # finite window values, cuda vs np (stated by the run)
@@ -72,29 +70,6 @@ def log(msg: str) -> None:
 # --------------------------------------------------------------------------
 # helpers
 # --------------------------------------------------------------------------
-
-
-def device_ms(torch, fn, launches: int = 30, reps: int = 5,
-              warmup: int = 3) -> float:
-    """Device time of one call: ``launches`` calls enqueued back to back
-    behind a spin kernel (``torch.cuda._sleep``), so the card runs them
-    without waiting for the host, timed with CUDA events around the batch
-    and divided by the count; the median of ``reps`` such batches."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)       # ~25 ms: covers the enqueueing
-        a.record()
-        for _ in range(launches):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / launches)
-    return statistics.median(times)
 
 
 def wall_ms(torch, fn, reps: int = 20, warmup: int = 2) -> float:
@@ -130,12 +105,6 @@ def compare(np, got, want) -> dict:
             "nonfinite_equal": bool(pattern),
             "bitwise_equal": bool(pattern and np.array_equal(g[fin], w[fin])),
             "nonfinite": int((~np.isfinite(w)).sum())}
-
-
-def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # --------------------------------------------------------------------------
@@ -185,6 +154,11 @@ def _masked_case(torch, np, rng, dev, nb, b, d, dtype, kind):
     elif kind == "sparse":
         mask = np.tril(rng.random((nb, b, b)) < 0.002, -1)
         base = rng.integers(0, 2, (nb, b, d))
+    elif kind == "nan":
+        # NaN on the diagonal and above: none of it may reach the output
+        mask = np.where(np.tri(b, b, -1, dtype=bool),
+                        rng.random((nb, b, b)) < 0.5, np.nan)
+        base = rng.integers(0, 2, (nb, b, d))
     else:  # random 0/1
         mask = np.tril(rng.random((nb, b, b)) < 0.5, -1)
         base = rng.integers(0, 2, (nb, b, d))
@@ -195,8 +169,9 @@ def _masked_case(torch, np, rng, dev, nb, b, d, dtype, kind):
 def phase_kernels(torch, np) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.hamlet_dense import dense_propagate_cuda
-    from repro_torch.kernels.hamlet_propagate import \
-        masked_prefix_propagate_cuda
+    from repro_torch.kernels.hamlet_propagate import (
+        masked_prefix_propagate_cuda, masked_propagate_work)
+    from repro_torch.kernels.timing import bound, device_ms
 
     dev = torch.device("cuda:0")
     rng = np.random.default_rng(0)
@@ -210,7 +185,16 @@ def phase_kernels(torch, np) -> dict:
              ("random mask, f32", (78, 313, 2), f32, "f32", 1e-5),
              ("random 0/1 mask, int32 (exact)", (78, 313, 2), i32, "int", 0.0),
              ("solved rows in global memory", (1, 6144, 2), f64, "sparse",
-              1e-12)]
+              1e-12),
+             ("NaN on and above the diagonal", (78, 313, 2), f64, "nan",
+              1e-12),
+             ("more blocks than SMs", (200, 65, 2), f64, "random", 1e-12),
+             ("int32, 4-column chunk (exact)", (16, 65, 3), i32, "int", 0.0)]
+    # column chunking (d 1, 3, 5) and the tile and lookahead edges of b
+    cases += [(f"random 0/1 mask, d={d}", (78, 313, d), f64, "random", 1e-12)
+              for d in (1, 3, 5)]
+    cases += [(f"random 0/1 mask, b={b}", (8, b, 2), f64, "random", 1e-12)
+              for b in (1, 31, 32, 33, 64, 65)]
     main = None
     for name, (nb, b, d), dtype, kind, tol in cases:
         base, mask = _masked_case(torch, np, rng, dev, nb, b, d, dtype, kind)
@@ -221,7 +205,7 @@ def phase_kernels(torch, np) -> dict:
         ok = c["nonfinite_equal"] and (c["bitwise_equal"] if tol == 0.0
                                        else c["max_rel_err"] <= tol)
         c.update(case=name, shape=[nb, b, d], dtype=str(dtype)[6:], tol=tol,
-                 ms=device_ms(torch, lambda: masked_prefix_propagate_cuda(
+                 ms=device_ms(lambda: masked_prefix_propagate_cuda(
                      base, mask)))
         checks.append(c)
         log(f"[kernels] hamlet_propagate {name} {(nb, b, d)}: {c}")
@@ -234,12 +218,9 @@ def phase_kernels(torch, np) -> dict:
     plain_ms = wall_ms(torch, lambda: ref.torch_prefix_propagate_batched(
         base, mask))
     neg = -mask
-    lib_ms = device_ms(torch, lambda: torch.linalg.solve_triangular(
+    lib_ms = device_ms(lambda: torch.linalg.solve_triangular(
         neg, base, upper=False, unitriangular=True))
-    # base and out once each, and the strict lower triangle of the mask:
-    # the kernel reads no entry on or above the diagonal
-    bms, by = bound(8.0 * (2 * nb * b * d + nb * b * (b - 1) / 2),
-                    2.0 * nb * d * b * (b - 1) / 2, "float64")
+    bms, by = bound(*masked_propagate_work(nb, b, d), "float64")
     entries["hamlet_propagate"] = {
         "name": "hamlet_propagate", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hamlet_propagate.cu",
@@ -264,7 +245,7 @@ def phase_kernels(torch, np) -> dict:
         c = compare(np, got, want)
         ok = c["nonfinite_equal"] and c["max_rel_err"] <= tol
         c.update(case=name, shape=list(base.shape), dtype=str(dtype)[6:],
-                 tol=tol, ms=device_ms(torch, lambda: dense_propagate_cuda(
+                 tol=tol, ms=device_ms(lambda: dense_propagate_cuda(
                      base)))
         checks.append(c)
         log(f"[kernels] hamlet_dense {name}: {c}")
@@ -285,7 +266,7 @@ def phase_kernels(torch, np) -> dict:
                                         unitriangular=True)
     lc = compare(np, dense_propagate_cuda(base), lib)
     log(f"[kernels] hamlet_dense f64 against solve_triangular: {lc}")
-    lib_ms = device_ms(torch, lambda: torch.linalg.solve_triangular(
+    lib_ms = device_ms(lambda: torch.linalg.solve_triangular(
         neg, base, upper=False, unitriangular=True))
     del neg, lib
     bms, by = bound(8.0 * 2 * nb * b * d, 3.0 * nb * b * d, "float64")
@@ -378,10 +359,12 @@ def phase_main(torch, np) -> dict:
     log(f"[main] {MAIN_CONFIG}: {len(stream)} events, {len(wl.queries)} "
         f"queries, K=16")
     masked_prefix_propagate_cuda.launches = 0
+    masked_prefix_propagate_cuda.shapes.clear()
     dense_propagate_cuda.launches = 0
     got, rt, wall = _run(torch, HamletRuntime, wl, stream, policy, "cuda")
     launches = {"hamlet_propagate": masked_prefix_propagate_cuda.launches,
                 "hamlet_dense": dense_propagate_cuda.launches}
+    masked_shapes = masked_prefix_propagate_cuda.shapes.copy()
     s = rt.stats
     split = {k: round(v, 4) for k, v in s.phase_split().items()}
     log(f"[main] cuda: wall {wall:.3f} s, {len(stream) / wall:.0f} events/s, "
@@ -448,8 +431,56 @@ def phase_main(torch, np) -> dict:
         f"{dev_us / 1e6:.4f} s, busy share {dev_us / 1e6 / wall_p:.4f}")
     for t, key, n in rows[:8]:
         log(f"[main]   {t / 1e3:10.3f} ms  x{n:<6d} {key[:90]}")
+    prof_ms = sum(t for t, key, _ in rows
+                  if "masked_propagate_kernel" in key) / 1e3
     return {"launches": launches, "wall_s": wall, "events": len(stream),
-            "windows": len(want), "bitwise": same}
+            "windows": len(want), "bitwise": same,
+            "masked": masked_shape_report(torch, np, masked_shapes, prof_ms)}
+
+
+def masked_shape_report(torch, np, shapes, prof_ms: float) -> dict:
+    """The masked kernel's main-path launches by ``(nb, b, d, dtype)``: the
+    most frequent shapes, the bound summed over every launch against the
+    profiler's total device time, and every distinct shape timed again
+    alone on random 0/1 inputs (10 calls behind a short spin), so that the
+    shapes that cost the most (count x device ms) are known."""
+    from repro_torch.kernels.hamlet_propagate import (
+        masked_prefix_propagate_cuda, masked_propagate_work)
+    from repro_torch.kernels.timing import bound, device_ms
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(1)
+    n = sum(shapes.values())
+    log(f"[main] masked shapes: {n} launches, {len(shapes)} distinct "
+        f"(nb, b, d, dtype); most frequent:")
+    for shape, k in shapes.most_common(10):
+        log(f"[main]   x{k} {shape}")
+    rows = []
+    for (nb, b, d, dt), k in shapes.items():
+        dtype = getattr(torch, dt)
+        bms, _ = bound(*masked_propagate_work(nb, b, d, dtype.itemsize), dt)
+        mask = torch.as_tensor(np.tril(rng.random((nb, b, b)) < 0.5, -1),
+                               dtype=dtype, device=dev)
+        base = torch.as_tensor(rng.integers(0, 2, (nb, b, d)), dtype=dtype,
+                               device=dev)
+        ms = device_ms(lambda: masked_prefix_propagate_cuda(
+            base, mask), launches=10, reps=3, warmup=1, spin=5_000_000)
+        rows.append((k * ms, k, (nb, b, d, dt), ms, bms))
+    rows.sort(reverse=True)
+    bound_sum = sum(k * bms for _, k, _, _, bms in rows)
+    replay = sum(r[0] for r in rows)
+    log(f"[main] masked kernel over the main path: profiler {prof_ms:.6f} ms "
+        f"device time, {replay:.6f} ms replayed shape by shape, summed bound "
+        f"{bound_sum:.6f} ms ({bound_sum / prof_ms if prof_ms else 0:.4f} "
+        f"of the profiler's)")
+    log("[main] costliest shapes (count x device ms):")
+    for tot, k, shape, ms, bms in rows[:8]:
+        log(f"[main]   {tot:.6f} ms = x{k} {shape} at {ms:.6f} ms "
+            f"(bound {bms:.7f})")
+    return {"launches": n, "distinct": len(shapes), "profiler_ms": prof_ms,
+            "replayed_ms": replay, "bound_ms": bound_sum,
+            "costliest": [[list(s), k, ms, bms]
+                          for _, k, s, ms, bms in rows[:8]]}
 
 
 def phase_cli(torch, np) -> None:
@@ -499,6 +530,7 @@ def main() -> None:
         fail(f"imported the JAX package or jax: {leaked[:5]}")
     for name, e in kernels.items():
         e["launches"] = main_res["launches"][name]
+    kernels["hamlet_propagate"]["main_path"] = main_res["masked"]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values()),
                       "card": card, "config": MAIN_CONFIG}), flush=True)

@@ -28,7 +28,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["DTYPE_CODES", "KernelLibrary", "load", "nvcc_path"]
+__all__ = ["DTYPE_CODES", "KernelLibrary", "build_from", "load",
+           "nvcc_path"]
 
 CSRC = Path(__file__).with_name("csrc")
 SOURCES = ("hamlet_propagate.cu", "hamlet_dense.cu", "hamlet_bindings.cpp")
@@ -101,23 +102,24 @@ class KernelLibrary:
 _LOADED: KernelLibrary | None = None
 
 
-def _digest(nvcc: str) -> str:
+def _digest(nvcc: str, csrc: Path = CSRC) -> str:
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(nvcc.encode())
     return h.hexdigest()[:16]
 
 
-def _compile(nvcc: str, build_dir: Path) -> tuple[Path, str]:
+def _compile(nvcc: str, build_dir: Path,
+             csrc: Path = CSRC) -> tuple[Path, str]:
     """One ``nvcc -c`` per source, all in parallel, then one link."""
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         procs = []
         for name in SOURCES:
             obj = Path(tmp, name + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(csrc / name), "-o", str(obj)]
             if name.endswith(".cu"):
                 cmd[1:1] = ["-Xptxas", "-v"]
             procs.append((name, obj, subprocess.Popen(
@@ -139,7 +141,7 @@ def _compile(nvcc: str, build_dir: Path) -> tuple[Path, str]:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-        final = build_dir / f"libhamlet_kernels_{_digest(nvcc)}.so"
+        final = build_dir / f"libhamlet_kernels_{_digest(nvcc, csrc)}.so"
         os.replace(lib_tmp, final)
     return final, log
 
@@ -160,3 +162,15 @@ def load() -> KernelLibrary:
         build_s = time.perf_counter() - t0
     _LOADED = KernelLibrary(ctypes.CDLL(str(path)), path, build_s, log)
     return _LOADED
+
+
+def build_from(csrc: Path, build_dir: Path) -> KernelLibrary:
+    """Build the library from another copy of ``csrc/`` (the same file
+    names) into ``build_dir`` and load it beside the package's own; for
+    timing two versions of a kernel in one process."""
+    nvcc = nvcc_path()
+    build_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    path, log = _compile(nvcc, build_dir, csrc)
+    return KernelLibrary(ctypes.CDLL(str(path)), path,
+                         time.perf_counter() - t0, log)

@@ -11,7 +11,8 @@ the design and what bounds it).  It replaces the TPU kernel
 ``masked_prefix_propagate_pallas`` of the JAX package
 (``src/repro/kernels/hamlet_propagate.py``), which tiles rows by 128 for the
 MXU; on Hopper the block walks 32-row tiles, one warp solving each tile by
-forward substitution.
+forward substitution from registers while seven warps apply the solved
+tiles' panels from ``cp.async`` rings.
 
 Beside it sits its plain version,
 :func:`repro_torch.kernels.ref.torch_prefix_propagate_batched`: the wrapper
@@ -20,11 +21,13 @@ takes it for a tensor that lies on the CPU, and only then.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from . import _build, ref
 
-__all__ = ["masked_prefix_propagate_cuda"]
+__all__ = ["masked_prefix_propagate_cuda", "masked_propagate_work"]
 
 _DTYPES = (torch.float64, torch.float32, torch.int32)
 
@@ -38,9 +41,10 @@ def masked_prefix_propagate_cuda(base: torch.Tensor,
                        triangle is read
     returns [nb, b, d] with c[i] = base[i] + sum_{j<i} mask[i,j] c[j].
 
-    On a CUDA tensor this launches the kernel (and counts the launch in
-    ``masked_prefix_propagate_cuda.launches``); on a CPU tensor it runs the
-    plain version; any other device raises.
+    On a CUDA tensor this launches the kernel, counts the launch in
+    ``masked_prefix_propagate_cuda.launches`` and its ``(nb, b, d, dtype)``
+    in the ``masked_prefix_propagate_cuda.shapes`` Counter; on a CPU tensor
+    it runs the plain version; any other device raises.
     """
     if base.dim() != 3:
         raise ValueError(f"base must be [nb, b, d], got {tuple(base.shape)}")
@@ -65,7 +69,21 @@ def masked_prefix_propagate_cuda(base: torch.Tensor,
     if base.numel():
         _build.load().masked_propagate(base, mask, out)
         masked_prefix_propagate_cuda.launches += 1
+        masked_prefix_propagate_cuda.shapes[
+            (nb, b, d, str(base.dtype).removeprefix("torch."))] += 1
     return out
 
 
 masked_prefix_propagate_cuda.launches = 0
+masked_prefix_propagate_cuda.shapes = collections.Counter()
+
+
+def masked_propagate_work(nb: int, b: int, d: int,
+                          itemsize: int = 8) -> tuple[float, float]:
+    """The bytes and operations a masked propagation of ``[nb, b, d]`` must
+    spend at the least: ``base`` read once, ``out`` written once and the
+    strict lower triangle of the mask read once (no entry on or above the
+    diagonal is needed), and one multiply and one add per strict-lower mask
+    entry and column.  Returns ``(bytes, operations)``."""
+    tri = nb * b * (b - 1) / 2
+    return float(itemsize * (2 * nb * b * d + tri)), 2.0 * d * tri

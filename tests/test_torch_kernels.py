@@ -263,3 +263,73 @@ def test_dense_wrapper_rejects(bad):
         base = base[0]
     with pytest.raises((ValueError, TypeError)):
         dense_propagate_cuda(base)
+
+
+@pytest.mark.parametrize("nb,b,d,itemsize", [(1, 1, 1, 8), (2, 3, 2, 8),
+                                             (1, 5, 1, 4), (3, 33, 5, 8),
+                                             (2, 64, 3, 4)])
+def test_masked_propagate_work_hand_count(nb, b, d, itemsize):
+    """The roofline work of the masked kernel, counted entry by entry: base
+    read and out written once, each strict-lower mask entry read once and
+    used for one multiply and one add per column."""
+    from repro_torch.kernels.hamlet_propagate import masked_propagate_work
+
+    lower = sum(1 for _ in range(nb) for i in range(b) for j in range(i))
+    want_bytes = itemsize * (nb * b * d + nb * b * d + lower)
+    want_ops = sum(2 for _ in range(lower) for _c in range(d))
+    assert masked_propagate_work(nb, b, d, itemsize) == (want_bytes, want_ops)
+
+
+def _chip_shape_case(seed, nb, b, d):
+    rng = np.random.default_rng(seed)
+    mask = np.tril(rng.random((nb, b, b)) < 0.5, k=-1).astype(np.float64)
+    base = rng.integers(0, 2, (nb, b, d)).astype(np.float64)
+    return base, mask
+
+
+@pytest.mark.parametrize("d", [1, 3, 5])
+@pytest.mark.parametrize("b", [1, 31, 32, 33, 64, 65])
+def test_masked_chip_shapes_match_pallas_and_oracle(b, d):
+    """The tile and lookahead edges of the CUDA kernel (b around 32 and 64)
+    at every column chunking (d 1, 3, 5): the plain version, and the wrapper
+    on the CPU, against the Pallas kernel (interpret mode) and the numpy
+    row oracle.  0/1 counts stay below 2^53, so the oracle is bitwise."""
+    base, mask = _chip_shape_case(b * 10 + d, 2, b, d)
+    want = rref.numpy_prefix_propagate_batched(base, mask)
+    pallas = np.asarray(rops.propagate_batched(base, mask, backend="pallas"))
+    got = ref.torch_prefix_propagate_batched(_t(base), _t(mask)).numpy()
+    assert np.array_equal(got, want)
+    assert _relerr(got, pallas) < 1e-12
+    assert np.array_equal(
+        masked_prefix_propagate_cuda(_t(base), _t(mask)).numpy(), want)
+
+
+@pytest.mark.parametrize("nb,b,d", [(200, 33, 2), (2, 313, 2)])
+def test_masked_many_blocks_and_odd_b(nb, b, d):
+    """More batch elements than the card has SMs, and an odd b (rows only
+    8-byte aligned on the card): plain version against the row oracle, to
+    1e-12 (at b = 313 the counts pass 2^53, so the order of addition
+    shows)."""
+    base, mask = _chip_shape_case(nb + b, nb, b, d)
+    want = rref.numpy_prefix_propagate_batched(base, mask)
+    got = ref.torch_prefix_propagate_batched(_t(base), _t(mask)).numpy()
+    assert np.isfinite(want).all() and _relerr(got, want) < 1e-12
+
+
+@pytest.mark.parametrize("b,d", [(33, 1), (65, 3), (40, 5)])
+def test_nan_on_and_above_the_diagonal_never_reaches_the_output(b, d):
+    """NaN written on the diagonal and in the upper triangle: the plain
+    version (and the wrapper on the CPU) give bitwise the row oracle's
+    result on the clean strictly lower mask, with no NaN, and the Pallas
+    kernel agrees on the clean mask."""
+    base, clean = _chip_shape_case(b + d, 2, b, d)
+    dirty = clean.copy()
+    dirty[np.triu(np.ones((2, b, b), dtype=bool))] = np.nan
+    want = rref.numpy_prefix_propagate_batched(base, clean)
+    pallas = np.asarray(rops.propagate_batched(base, clean, backend="pallas"))
+    for fn in (ref.torch_prefix_propagate_batched,
+               masked_prefix_propagate_cuda):
+        got = fn(_t(base), _t(dirty)).numpy()
+        assert not np.isnan(got).any()
+        assert np.array_equal(got, want)
+        assert _relerr(got, pallas) < 1e-12

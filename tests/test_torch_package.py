@@ -176,3 +176,36 @@ def test_interop_round_trip():
                            c["type_id"], c["time"], c["attrs"], c["group"])
     assert t.schema == s.schema and (t.attrs == s.attrs).all()
     assert t.attrs is not s.attrs
+
+
+def test_bound_takes_the_larger_time():
+    from repro_torch.kernels.hamlet_propagate import masked_propagate_work
+    from repro_torch.kernels.timing import bound
+
+    assert bound(3.35e9, 1.0, "float64") == (1.0, "bytes")
+    assert bound(1.0, 67e9, "int32") == (1.0, "operations")
+    ms, by = bound(*masked_propagate_work(78, 313, 2), "float64")
+    assert by == "bytes" and abs(ms - 31249920 / 3.35e12 * 1e3) < 1e-15
+
+
+def test_masked_ab_parses_shapes_and_needs_a_gpu():
+    _no_cuda()
+    from repro_torch.kernels import masked_ab
+
+    args = masked_ab.parse_args(["--other", "x.cu", "--shape", "78,313,2",
+                                 "--shape", "1,1100,2"])
+    assert args.shape == [(78, 313, 2), (1, 1100, 2)]
+    assert args.other == Path("x.cu")
+    assert masked_ab.main(["--other", "x.cu", "--shape", "2,3,1"]) == 1
+
+
+def test_build_from_needs_nvcc(tmp_path, monkeypatch):
+    from repro_torch.kernels import _build
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if Path("/usr/local/cuda/bin/nvcc").is_file():
+        pytest.skip("the toolkit is installed at its default location")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_from(_build.CSRC, tmp_path / "build")
+    assert not (tmp_path / "build").exists()
