@@ -11,12 +11,17 @@ Phases, in order; a failure in any of them exits non-zero:
               /csrc`` (one ``nvcc`` per source, all in parallel) and prints the
               build time;
 3. kernels  — each kernel against its plain PyTorch version on the card, at
-              the main path's bucket shapes and at the masked kernel's
-              edges (d 1-5, b at the 32-row tile edges, 200 blocks, NaN on
-              and above the diagonal), with the tolerance stated per check; ``ms`` and ``library_ms`` are device time per call (30
-              calls queued behind a spin kernel, CUDA events), ``plain_ms``
-              the time of one call of the plain version, host launches
-              included (it is a loop of small torch ops);
+              the main path's bucket shapes and at each kernel's edges
+              (masked: d 1-5, b at the 32-row tile edges, 200 blocks, NaN on
+              and above the diagonal; dense: b at the 16-row lane edges and
+              the 512 cap, d 1-5, nb 1 and 200, integer-valued f64 bitwise,
+              +inf entries, a burst zero-padded to 128 and 256 rows bitwise
+              equal to the burst alone, b = 513 refused), with the
+              tolerance stated per check; ``ms`` and ``library_ms`` are
+              device time per call (30 calls queued behind a spin kernel,
+              CUDA events), ``plain_ms`` the time of one call of the plain
+              version, host launches included (it is a loop of small torch
+              ops);
 4. main     — the main path, ``HamletRuntime(..., backend="cuda",
               micro_batch=16, plan_cache=True, fold_exec=True).run(...)``, on
               the ``overload_64plus_pred_full`` configuration (163,041 events),
@@ -24,8 +29,8 @@ Phases, in order; a failure in any of them exits non-zero:
               every kernel's launch count from that run; then the same
               configuration at 1/20 of its rate, whose windows are finite,
               held the same way; then the full run under ``torch.profiler``
-              for the device's busy share; then the masked kernel's launches
-              by shape: the most frequent, the bound summed over all of them
+              for the device's busy share; then each kernel's launches by
+              shape: the most frequent, the bound summed over all of them
               against the profiler's total, and every distinct shape timed
               again alone, costliest first;
 5. cli      — the port's ``launch.hamlet_service`` default mode on the card,
@@ -168,7 +173,8 @@ def _masked_case(torch, np, rng, dev, nb, b, d, dtype, kind):
 
 def phase_kernels(torch, np) -> dict:
     from repro_torch.kernels import ref
-    from repro_torch.kernels.hamlet_dense import dense_propagate_cuda
+    from repro_torch.kernels.hamlet_dense import (dense_propagate_cuda,
+                                                  dense_propagate_work)
     from repro_torch.kernels.hamlet_propagate import (
         masked_prefix_propagate_cuda, masked_propagate_work)
     from repro_torch.kernels.timing import bound, device_ms
@@ -232,44 +238,95 @@ def phase_kernels(torch, np) -> dict:
                         "unitriangular=True)",
         "checks": checks}
 
-    # dense burst propagation
+    # dense burst propagation: (name, shape, dtype, input kind, tolerance;
+    # 0.0 means bitwise)
     checks = []
+    cases = [("f64", (485, 512, 2), f64, "real", 1e-12),
+             ("f32 (saturates)", (485, 512, 2), f32, "f32", 1e-5),
+             ("f64 integer-valued (exact)", (485, 512, 2), f64, "int", 0.0),
+             ("+inf entries", (16, 512, 3), f64, "inf", 1e-12),
+             ("one batch element", (1, 512, 2), f64, "real", 1e-12),
+             ("f32, 3-column chunk", (8, 33, 3), f32, "f32", 1e-5)]
+    # the lanes' 16-row runs (b around 16 and 32) and the 512 cap, exact
+    cases += [(f"integer-valued, b={b}", (8, b, 2), f64, "int", 0.0)
+              for b in (1, 2, 15, 16, 17, 31, 32, 33, 511, 512)]
+    # column chunking (d 1, 3, 5) with more batch elements than SMs
+    cases += [(f"f64, d={d}", (200, 512, d), f64, "real", 1e-12)
+              for d in (1, 3, 5)]
+    cases += [(f"integer-valued, d={d}", (200, 100, d), f64, "int", 0.0)
+              for d in (1, 3, 5)]
     main = None
-    for name, dtype, scale, tol in (("f64", f64, 3.0, 1e-12),
-                                    ("f32 (saturates)", f32, 1e-4, 1e-5)):
-        base = torch.as_tensor(rng.random((485, 512, 2)) * scale, dtype=dtype,
-                               device=dev)
+    for name, (nb, b, d), dtype, kind, tol in cases:
+        base = torch.as_tensor(_dense_base(np, rng, nb, b, d, kind),
+                               dtype=dtype, device=dev)
         got = dense_propagate_cuda(base)
         torch.cuda.synchronize()
         want = ref.prefix_propagate_dense_torch_batched(base)
         c = compare(np, got, want)
-        ok = c["nonfinite_equal"] and c["max_rel_err"] <= tol
-        c.update(case=name, shape=list(base.shape), dtype=str(dtype)[6:],
-                 tol=tol, ms=device_ms(lambda: dense_propagate_cuda(
-                     base)))
+        ok = c["nonfinite_equal"] and (c["bitwise_equal"] if tol == 0.0
+                                       else c["max_rel_err"] <= tol)
+        c.update(case=name, shape=[nb, b, d], dtype=str(dtype)[6:], tol=tol,
+                 ms=device_ms(lambda: dense_propagate_cuda(base)))
         checks.append(c)
-        log(f"[kernels] hamlet_dense {name}: {c}")
+        log(f"[kernels] hamlet_dense {name} {(nb, b, d)}: {c}")
         if not ok:
             fail(f"hamlet_dense disagrees with its plain version: {name}")
+        if kind == "inf" and not c["nonfinite"]:
+            fail("hamlet_dense +inf check: no non-finite value compared")
         if main is None:
             main = (base, c)
+    try:
+        dense_propagate_cuda(torch.zeros(1, 513, 2, dtype=f64, device=dev))
+    except ValueError as e:
+        log(f"[kernels] hamlet_dense b=513 refused: {e}")
+    else:
+        fail("hamlet_dense took b = 513, past the 512 cap")
+    # padding invariance: a burst alone and zero-padded after its rows, as
+    # the executor pads buckets to next_pow2(b), gives bitwise the same rows
+    burst = rng.random((4, 100, 2)) * 3.0
+    alone = dense_propagate_cuda(torch.as_tensor(burst, device=dev))
+    for bp in (128, 256):
+        padded = np.zeros((4, bp, 2))
+        padded[:, :100] = burst
+        got = dense_propagate_cuda(torch.as_tensor(padded, device=dev))
+        if not torch.equal(got[:, :100], alone):
+            fail(f"hamlet_dense: rows 0..99 differ when padded to {bp} rows")
+    c = compare(np, alone, ref.prefix_propagate_dense_torch_batched(
+        torch.as_tensor(burst, device=dev)))
+    if c["max_rel_err"] > 1e-12:
+        fail(f"hamlet_dense: the b = 100 burst disagrees: {c}")
+    log("[kernels] hamlet_dense padding invariance: b=100 alone, padded to "
+        "128 and to 256 rows: rows 0..99 bitwise equal")
+    checks.append(dict(c, case="padding invariance (b=100 | 128 | 256)",
+                       shape=[4, 100, 2], dtype="float64", tol=1e-12,
+                       padded_rows_bitwise=True))
+
     base, c = main
     nb, b, d = base.shape
     plain_ms = wall_ms(torch, lambda: ref.prefix_propagate_dense_torch_batched(
         base))
-    # the library's form of the same function: a unit-lower solve against
-    # the all-ones strictly lower mask (timed here only; the port never
-    # calls it)
+    # one library call for the same function, the way the TPU kernel
+    # computes it: the closed-form matrix W = (I - L)^{-1} (1 on the
+    # diagonal, 2^{i-j-1} below it, exact host powers of two) times base;
+    # and the more general unit-lower solve on the all-ones mask (timed
+    # here only; the port calls neither)
+    i = np.arange(b)
+    w = torch.as_tensor(np.where(i[:, None] > i[None, :],
+                                 2.0 ** (i[:, None] - i[None, :] - 1.0),
+                                 (i[:, None] == i[None, :]).astype(float)),
+                        dtype=f64, device=dev)
+    lc = compare(np, torch.matmul(w, base),
+                 ref.prefix_propagate_dense_torch_batched(base))
+    log(f"[kernels] torch.matmul(W, base) against the plain version: {lc}")
+    if not lc["nonfinite_equal"] or lc["max_rel_err"] > 1e-12:
+        fail("torch.matmul(W, base) disagrees with the plain version")
+    lib_ms = device_ms(lambda: torch.matmul(w, base))
     neg = torch.tril(torch.ones(b, b, dtype=f64, device=dev), -1).neg()
     neg = neg.expand(nb, b, b).contiguous()
-    lib = torch.linalg.solve_triangular(neg, base, upper=False,
-                                        unitriangular=True)
-    lc = compare(np, dense_propagate_cuda(base), lib)
-    log(f"[kernels] hamlet_dense f64 against solve_triangular: {lc}")
-    lib_ms = device_ms(lambda: torch.linalg.solve_triangular(
+    solve_ms = device_ms(lambda: torch.linalg.solve_triangular(
         neg, base, upper=False, unitriangular=True))
-    del neg, lib
-    bms, by = bound(8.0 * 2 * nb * b * d, 3.0 * nb * b * d, "float64")
+    del neg, w
+    bms, by = bound(*dense_propagate_work(nb, b, d), "float64")
     entries["hamlet_dense"] = {
         "name": "hamlet_dense", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hamlet_dense.cu",
@@ -277,10 +334,28 @@ def phase_kernels(torch, np) -> dict:
         "shape": [nb, b, d], "dtype": "float64",
         "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": plain_ms,
         "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-        "library_call": "torch.linalg.solve_triangular(-tril(ones(b, b), -1)"
-                        ", base, unitriangular=True)",
+        "library_call": "torch.matmul(W, base), W = (I - L)^{-1}",
+        "solve_triangular_ms": solve_ms,
         "checks": checks}
     return entries
+
+
+def _dense_base(np, rng, nb, b, d, kind):
+    """Inputs of the dense checks: non-integer values in [0, 3) ("real"),
+    f32-scale values that saturate f32 within 512 rows ("f32"), integers
+    0..2 in the last 48 rows and zero before, so that the counts stay below
+    2^53 while the last lanes' carries still go through the scan ("int"),
+    or "real" with about one entry in 500 set to +inf ("inf")."""
+    if kind == "f32":
+        return rng.random((nb, b, d)) * 1e-4
+    if kind == "int":
+        x = rng.integers(0, 3, (nb, b, d)).astype(np.float64)
+        x[:, :max(0, b - 48)] = 0.0
+        return x
+    x = rng.random((nb, b, d)) * 3.0
+    if kind == "inf":
+        x[rng.random((nb, b, d)) < 0.002] = np.inf
+    return x
 
 
 def main_config(events_per_minute: int = 20000):
@@ -358,13 +433,14 @@ def phase_main(torch, np) -> dict:
     wl, stream, policy = main_config()
     log(f"[main] {MAIN_CONFIG}: {len(stream)} events, {len(wl.queries)} "
         f"queries, K=16")
-    masked_prefix_propagate_cuda.launches = 0
-    masked_prefix_propagate_cuda.shapes.clear()
-    dense_propagate_cuda.launches = 0
+    for fn in (masked_prefix_propagate_cuda, dense_propagate_cuda):
+        fn.launches = 0
+        fn.shapes.clear()
     got, rt, wall = _run(torch, HamletRuntime, wl, stream, policy, "cuda")
     launches = {"hamlet_propagate": masked_prefix_propagate_cuda.launches,
                 "hamlet_dense": dense_propagate_cuda.launches}
-    masked_shapes = masked_prefix_propagate_cuda.shapes.copy()
+    shapes = {"hamlet_propagate": masked_prefix_propagate_cuda.shapes.copy(),
+              "hamlet_dense": dense_propagate_cuda.shapes.copy()}
     s = rt.stats
     split = {k: round(v, 4) for k, v in s.phase_split().items()}
     log(f"[main] cuda: wall {wall:.3f} s, {len(stream) / wall:.0f} events/s, "
@@ -431,56 +507,70 @@ def phase_main(torch, np) -> dict:
         f"{dev_us / 1e6:.4f} s, busy share {dev_us / 1e6 / wall_p:.4f}")
     for t, key, n in rows[:8]:
         log(f"[main]   {t / 1e3:10.3f} ms  x{n:<6d} {key[:90]}")
-    prof_ms = sum(t for t, key, _ in rows
-                  if "masked_propagate_kernel" in key) / 1e3
     return {"launches": launches, "wall_s": wall, "events": len(stream),
             "windows": len(want), "bitwise": same,
-            "masked": masked_shape_report(torch, np, masked_shapes, prof_ms)}
+            "shapes": {name: shape_report(
+                torch, np, name, counts,
+                sum(t for t, key, _ in rows if PROFILER_KEYS[name] in key)
+                / 1e3) for name, counts in shapes.items()}}
 
 
-def masked_shape_report(torch, np, shapes, prof_ms: float) -> dict:
-    """The masked kernel's main-path launches by ``(nb, b, d, dtype)``: the
-    most frequent shapes, the bound summed over every launch against the
-    profiler's total device time, and every distinct shape timed again
-    alone on random 0/1 inputs (10 calls behind a short spin), so that the
-    shapes that cost the most (count x device ms) are known."""
+# the kernels' function names, as the profiler's keys hold them
+PROFILER_KEYS = {"hamlet_propagate": "masked_propagate_kernel",
+                 "hamlet_dense": "dense_propagate_kernel"}
+
+
+def shape_report(torch, np, name: str, shapes, prof_ms: float) -> dict:
+    """A kernel's main-path launches by ``(nb, b, d, dtype)``: the most
+    frequent shapes, the bound summed over every launch against the
+    profiler's total device time for the kernel, and every distinct shape
+    timed again alone on random 0/1 inputs (10 calls behind a short spin),
+    so that the shapes that cost the most (count x device ms) are known."""
+    from repro_torch.kernels.hamlet_dense import (dense_propagate_cuda,
+                                                  dense_propagate_work)
     from repro_torch.kernels.hamlet_propagate import (
         masked_prefix_propagate_cuda, masked_propagate_work)
     from repro_torch.kernels.timing import bound, device_ms
 
+    fn, work = {"hamlet_propagate": (masked_prefix_propagate_cuda,
+                                     masked_propagate_work),
+                "hamlet_dense": (dense_propagate_cuda,
+                                 dense_propagate_work)}[name]
     dev = torch.device("cuda:0")
     rng = np.random.default_rng(1)
     n = sum(shapes.values())
-    log(f"[main] masked shapes: {n} launches, {len(shapes)} distinct "
+    log(f"[main] {name} shapes: {n} launches, {len(shapes)} distinct "
         f"(nb, b, d, dtype); most frequent:")
     for shape, k in shapes.most_common(10):
         log(f"[main]   x{k} {shape}")
     rows = []
     for (nb, b, d, dt), k in shapes.items():
         dtype = getattr(torch, dt)
-        bms, _ = bound(*masked_propagate_work(nb, b, d, dtype.itemsize), dt)
-        mask = torch.as_tensor(np.tril(rng.random((nb, b, b)) < 0.5, -1),
-                               dtype=dtype, device=dev)
-        base = torch.as_tensor(rng.integers(0, 2, (nb, b, d)), dtype=dtype,
-                               device=dev)
-        ms = device_ms(lambda: masked_prefix_propagate_cuda(
-            base, mask), launches=10, reps=3, warmup=1, spin=5_000_000)
+        bms, _ = bound(*work(nb, b, d, dtype.itemsize), dt)
+        args = [torch.as_tensor(rng.integers(0, 2, (nb, b, d)), dtype=dtype,
+                                device=dev)]
+        if fn is masked_prefix_propagate_cuda:
+            args.append(torch.as_tensor(
+                np.tril(rng.random((nb, b, b)) < 0.5, -1), dtype=dtype,
+                device=dev))
+        ms = device_ms(lambda: fn(*args), launches=10, reps=3, warmup=1,
+                       spin=5_000_000)
         rows.append((k * ms, k, (nb, b, d, dt), ms, bms))
     rows.sort(reverse=True)
     bound_sum = sum(k * bms for _, k, _, _, bms in rows)
     replay = sum(r[0] for r in rows)
-    log(f"[main] masked kernel over the main path: profiler {prof_ms:.6f} ms "
+    log(f"[main] {name} over the main path: profiler {prof_ms:.6f} ms "
         f"device time, {replay:.6f} ms replayed shape by shape, summed bound "
         f"{bound_sum:.6f} ms ({bound_sum / prof_ms if prof_ms else 0:.4f} "
         f"of the profiler's)")
-    log("[main] costliest shapes (count x device ms):")
-    for tot, k, shape, ms, bms in rows[:8]:
+    log(f"[main] {name} costliest shapes (count x device ms):")
+    for tot, k, shape, ms, bms in rows[:20]:
         log(f"[main]   {tot:.6f} ms = x{k} {shape} at {ms:.6f} ms "
             f"(bound {bms:.7f})")
     return {"launches": n, "distinct": len(shapes), "profiler_ms": prof_ms,
             "replayed_ms": replay, "bound_ms": bound_sum,
             "costliest": [[list(s), k, ms, bms]
-                          for _, k, s, ms, bms in rows[:8]]}
+                          for _, k, s, ms, bms in rows[:20]]}
 
 
 def phase_cli(torch, np) -> None:
@@ -530,7 +620,7 @@ def main() -> None:
         fail(f"imported the JAX package or jax: {leaked[:5]}")
     for name, e in kernels.items():
         e["launches"] = main_res["launches"][name]
-    kernels["hamlet_propagate"]["main_path"] = main_res["masked"]
+        e["main_path"] = main_res["shapes"][name]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values()),
                       "card": card, "config": MAIN_CONFIG}), flush=True)

@@ -19,17 +19,13 @@ import numpy as np
 import torch
 
 from . import ref
-from .hamlet_dense import dense_propagate_cuda
+from .hamlet_dense import DENSE_B_MAX, dense_propagate_cuda
 from .hamlet_propagate import masked_prefix_propagate_cuda
 
 __all__ = ["propagate", "propagate_batched", "propagate_dense",
            "propagate_dense_batched", "fold_stacked", "fold_rounds_scan",
            "device_get_all", "resolve_device", "PROPAGATE_BACKENDS",
            "DENSE_B_MAX"]
-
-# largest burst the dense closed form handles exactly (2^b weight range);
-# the engine's dense-eligibility test and the executor's fallback share it
-DENSE_B_MAX = 512
 
 PROPAGATE_BACKENDS = ("np", "torch", "cuda")
 

@@ -214,8 +214,10 @@ def prefix_propagate_dense_torch_batched(base: torch.Tensor) -> torch.Tensor:
     """Dense-burst closed form over ``base [nb, b, d]``: twin of
     :func:`prefix_propagate_dense_np_batched` and the plain version of the
     dense CUDA kernel.  Scaling by powers of two is exact, so the weighted
-    cumsum rounds exactly like the recurrence ``s_i = 2 s_{i-1} + b_i`` the
-    kernel runs (float64 arithmetic, cast back to the input dtype)."""
+    cumsum rounds exactly like the sequential recurrence
+    ``s_i = 2 s_{i-1} + b_i`` (float64 arithmetic, cast back to the input
+    dtype); the kernel scans the recurrence in another order, exact where
+    the values are integers below 2^53."""
     nb, b, d = base.shape
     # exact powers of two from the host (a device pow/exp2 may round)
     i = np.arange(b, dtype=np.float64)

@@ -28,7 +28,9 @@ from repro.kernels import ops as rops
 from repro.kernels import ref as rref
 from repro.kernels.hamlet_dense import dense_propagate_pallas
 from repro_torch.kernels import ref
-from repro_torch.kernels.hamlet_dense import dense_propagate_cuda
+from repro_torch.kernels.hamlet_dense import (DENSE_B_MAX,
+                                              dense_propagate_cuda,
+                                              dense_propagate_work)
 from repro_torch.kernels.hamlet_propagate import masked_prefix_propagate_cuda
 
 
@@ -234,6 +236,20 @@ def test_wrappers_take_the_plain_version_on_cpu():
     assert dense_propagate_cuda.launches == d0
 
 
+def test_shape_counters_untouched_on_cpu():
+    """Only a kernel launch counts a shape: the plain path on a CPU tensor
+    leaves both wrappers' ``shapes`` Counters as they were."""
+    rng = np.random.default_rng(4)
+    base, mask = _zero_one(rng, 3, 20, 2, 0.5)
+    masked0 = masked_prefix_propagate_cuda.shapes.copy()
+    dense0 = dense_propagate_cuda.shapes.copy()
+    masked_prefix_propagate_cuda(_t(base), _t(mask))
+    dense_propagate_cuda(_t(base))
+    dense_propagate_cuda(_t(base).float())
+    assert masked_prefix_propagate_cuda.shapes == masked0
+    assert dense_propagate_cuda.shapes == dense0
+
+
 @pytest.mark.parametrize("bad", ["shape", "dtype", "mixed", "device", "2d"])
 def test_masked_wrapper_rejects(bad):
     base = torch.zeros(2, 5, 3, dtype=torch.float64)
@@ -252,17 +268,80 @@ def test_masked_wrapper_rejects(bad):
         masked_prefix_propagate_cuda(base, mask)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "device", "2d"])
+@pytest.mark.parametrize("bad", ["dtype", "device", "2d", "b513"])
 def test_dense_wrapper_rejects(bad):
     base = torch.zeros(2, 5, 3, dtype=torch.float64)
     if bad == "dtype":
         base = base.to(torch.int32)
     elif bad == "device":
         base = base.to("meta")
+    elif bad == "b513":
+        # past the cap even on a CPU tensor, whose plain version's 2^{+-i}
+        # weights leave the f64 range from i = 1024 on
+        base = torch.zeros(2, DENSE_B_MAX + 1, 3, dtype=torch.float64)
     else:
         base = base[0]
     with pytest.raises((ValueError, TypeError)):
         dense_propagate_cuda(base)
+
+
+@pytest.mark.parametrize("d", [1, 3, 5])
+@pytest.mark.parametrize("b", [1, 15, 16, 17, 512])
+def test_dense_chip_shapes_match_oracle(b, d):
+    """The lane edges of the CUDA kernel's fixed 16-row runs and the 512
+    cap, at every column chunking (d 1, 3, 5): the plain version, and the
+    wrapper on the CPU, bitwise against the numpy closed form of the JAX
+    package on non-integer f64 inputs."""
+    rng = np.random.default_rng(b * 10 + d)
+    base = rng.random((3, b, d)) * 3.0
+    want = rref.prefix_propagate_dense_np_batched(base)
+    assert np.isfinite(want).all()
+    assert np.array_equal(
+        ref.prefix_propagate_dense_torch_batched(_t(base)).numpy(), want)
+    assert np.array_equal(dense_propagate_cuda(_t(base)).numpy(), want)
+
+
+@pytest.mark.parametrize("d", [1, 3, 5])
+def test_dense_chip_shapes_f32_match_pallas(d):
+    """f32 at the cap (b = 512, a multiple of the Pallas kernel's 64-row
+    tile): the saturation positions of the Pallas kernel (interpret mode)
+    and its values to 1e-5 on the finite part."""
+    rng = np.random.default_rng(500 + d)
+    base = (rng.random((2, DENSE_B_MAX, d)) * 1e-4).astype(np.float32)
+    pallas = np.asarray(dense_propagate_pallas(jnp.asarray(base)))
+    got = dense_propagate_cuda(_t(base)).numpy()
+    assert got.dtype == np.float32
+    fin = np.isfinite(pallas)
+    assert np.array_equal(fin, np.isfinite(got)) and fin.any()
+    rel = np.max(np.abs(got[fin] - pallas[fin]) / (1e-30 + np.abs(pallas[fin])))
+    assert rel < 1e-5, rel
+
+
+@pytest.mark.parametrize("b", [1, 15, 17, 100, 300])
+def test_dense_prefix_invariant_under_zero_padding(b):
+    """A burst alone, and zero-padded after its rows to next_pow2(b) (as
+    the executor buckets it) and to the cap: the real rows are bitwise
+    the same, in the plain version and in the numpy oracle."""
+    rng = np.random.default_rng(b)
+    burst = rng.random((2, b, 2)) * 3.0
+    alone = ref.prefix_propagate_dense_torch_batched(_t(burst)).numpy()
+    for bp in (1 << (b - 1).bit_length(), DENSE_B_MAX):
+        padded = np.zeros((2, bp, 2))
+        padded[:, :b] = burst
+        got = ref.prefix_propagate_dense_torch_batched(_t(padded)).numpy()
+        assert np.array_equal(got[:, :b], alone)
+        assert np.array_equal(
+            rref.prefix_propagate_dense_np_batched(padded)[:, :b], alone)
+
+
+@pytest.mark.parametrize("nb,b,d,itemsize", [(1, 1, 1, 8), (485, 512, 2, 8),
+                                             (3, 17, 5, 4)])
+def test_dense_propagate_work_hand_count(nb, b, d, itemsize):
+    """The roofline work of the dense kernel: base read and out written
+    once, three operations (c = b + s, s = 2 s + b) per element."""
+    want_bytes = sum(2 * itemsize for _ in range(nb * b * d))
+    assert dense_propagate_work(nb, b, d, itemsize) == (want_bytes,
+                                                        3.0 * nb * b * d)
 
 
 @pytest.mark.parametrize("nb,b,d,itemsize", [(1, 1, 1, 8), (2, 3, 2, 8),

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as rops
-from repro_torch.kernels import ops
+from repro_torch.kernels import hamlet_dense, ops
 
 BACKENDS = [("np", None), ("torch", "cpu")]
 
@@ -76,6 +76,8 @@ def test_empty_batch(backend, device):
 
 @pytest.mark.parametrize("backend,device", BACKENDS)
 def test_dense_cap_and_fallback(backend, device):
+    # one constant: the kernel wrapper's cap is the one ops routes by
+    assert ops.DENSE_B_MAX is hamlet_dense.DENSE_B_MAX
     assert ops.DENSE_B_MAX == rops.DENSE_B_MAX == 512
     with pytest.raises(ValueError):
         ops.propagate_dense_batched(np.zeros((1, 513, 1)), backend=backend,

@@ -209,3 +209,43 @@ def test_build_from_needs_nvcc(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_from(_build.CSRC, tmp_path / "build")
     assert not (tmp_path / "build").exists()
+
+
+def test_masked_ab_parses_the_dense_kernel():
+    """``--kernel dense`` picks the dense kernel's source, inputs, plain
+    version and work; ``--kernel`` defaults to the masked kernel and takes
+    no other name."""
+    _no_cuda()
+    from repro_torch.kernels import masked_ab
+    from repro_torch.kernels.hamlet_dense import dense_propagate_work
+
+    args = masked_ab.parse_args(["--kernel", "dense", "--other", "x.cu",
+                                 "--shape", "485,512,2", "--shape",
+                                 "2,64,1"])
+    assert args.kernel == "dense"
+    assert args.shape == [(485, 512, 2), (2, 64, 1)]
+    kern = masked_ab.KERNELS[args.kernel]
+    assert kern.source == "hamlet_dense.cu"
+    assert kern.work is dense_propagate_work
+    assert masked_ab.parse_args(["--other", "x.cu", "--shape",
+                                 "1,2,3"]).kernel == "masked"
+    with pytest.raises(SystemExit):
+        masked_ab.parse_args(["--kernel", "fold", "--other", "x.cu",
+                              "--shape", "1,2,3"])
+    # the inputs the tool checks and times at a shape, on the CPU here
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    (base,) = kern.inputs(rng, 2, 64, 1, torch.device("cpu"))
+    assert base.shape == (2, 64, 1) and base.dtype == torch.float64
+    assert kern.plain(base).shape == base.shape
+    assert masked_ab.main(["--kernel", "dense", "--other", "x.cu",
+                           "--shape", "2,3,1"]) == 1
+    log = ("== hamlet_propagate.cu\nptxas info : Used 200 registers\n"
+           "== hamlet_dense.cu\nptxas info : Compiling entry function "
+           "'k' for 'sm_90a'\nptxas info : Used 40 registers\n"
+           "    0 bytes stack frame, 0 bytes spill stores\n")
+    assert masked_ab._ptxas_lines(log, "hamlet_dense.cu") == [
+        "ptxas info : Compiling entry function 'k' for 'sm_90a'",
+        "ptxas info : Used 40 registers",
+        "0 bytes stack frame, 0 bytes spill stores"]
