@@ -34,7 +34,28 @@ Phases, in order; a failure in any of them exits non-zero:
               against the profiler's total, and every distinct shape timed
               again alone, costliest first;
 5. cli      — the port's ``launch.hamlet_service`` default mode on the card,
-              held against ``backend="np"``.
+              held against ``backend="np"``;
+6. baselines — the paper's Fig. 9 comparison (``repro_torch.launch.fig9``):
+              at 1,000 ev/min (every window finite) GRETA on the masked
+              kernel held against GRETA on numpy and against HAMLET, SHARON
+              (host) against GRETA, MCEP and brute force at 30 and 60
+              ev/min against GRETA, and a MIN/MAX variant under HAMLET on
+              cuda against np at K 1 and 16; at 20,000 ev/min (the paper's
+              scale, 40,000 events) HAMLET and GRETA timed, GRETA's wall
+              split into host adjacency, mask copy, kernel and fetch, GRETA
+              held against HAMLET (same keys, same non-finite values), the
+              kernel's count vectors on three windows held against the
+              plain versions on the card, and the kernel alone at GRETA's
+              smallest and largest shape with its bound and
+              ``solve_triangular``;
+7. obs      — the finite cut of the main configuration with
+              ``Observability()`` attached, bitwise equal to the run without
+              it, phase spans against the ``RunStats`` timers and the audit
+              summary; then the CLI's ``--trace`` on the card into
+              ``build/chip_smoke_trace.jsonl``.
+
+Each path's kernel launches are counted from zero just before it runs; a
+path that should launch a kernel and did not fails the run.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``name, power.limit`` as nvidia-smi prints them, and
@@ -388,9 +409,11 @@ def main_config(events_per_minute: int = 20000):
     return wl, stream, DynamicPolicy
 
 
-def hold(np, got: dict, want: dict, rtol_of, what: str) -> tuple[int, int]:
+def hold(np, got: dict, want: dict, rtol_of, what: str,
+         exact_counts: bool = False) -> tuple[int, int]:
     """Hold window results against the oracle's: equal keys, equal
-    non-finite pattern, finite values within ``rtol_of(agg)``.  Returns the
+    non-finite pattern, finite values within ``rtol_of(agg)`` (and, with
+    ``exact_counts``, COUNT values below 2^53 exactly equal).  Returns the
     number of bitwise-equal windows and the number of finite values held."""
     from repro_torch.core.engine import vals_equal
 
@@ -410,6 +433,10 @@ def hold(np, got: dict, want: dict, rtol_of, what: str) -> tuple[int, int]:
                      f"{gv} vs {wv}")
             if math.isfinite(wv) and abs(gv - wv) > rtol_of(a) * abs(wv):
                 fail(f"{what}: {k} {a} = {gv}, oracle {wv}")
+            if (exact_counts and a.startswith("COUNT") and abs(wv) < 2 ** 53
+                    and gv != wv):
+                fail(f"{what}: {k} {a} = {gv}, oracle {wv} (exact below "
+                     "2^53)")
     finite = sum(math.isfinite(v) for r in want.values() for v in r.values())
     return sum(vals_equal(got[k], want[k]) for k in want), finite
 
@@ -591,6 +618,365 @@ def phase_cli(torch, np) -> None:
         f"bitwise equal (vals_equal)")
 
 
+# --------------------------------------------------------------------------
+# the paper's baselines (fig9's workload) and the observability layer
+# --------------------------------------------------------------------------
+
+# fig9's workload (benchmarks/fig9_vs_sota.py, copied into repro_torch
+# .launch.fig9) at three rates: 1,000 ev/min for 2 min (2,000 events, 236-267
+# events a GRETA window, every window finite), 20,000 ev/min (40,000 events,
+# ~4,900-5,100 a window: the top of the paper's 10K-20K range), and the toy
+# rates MCEP's and brute force's trend enumeration can finish: fig9's 30
+# ev/min, whose windows hold no trend, and 60 ev/min, the least rate whose
+# windows do
+FIG9_FINITE = 1000
+FIG9_PAPER = 20000
+FIG9_TOY = (30, 60)
+DEVICE = "cuda:0"
+
+
+def _reset(*fns) -> None:
+    for fn in fns:
+        fn.launches = 0
+        fn.shapes.clear()
+
+
+def _kind(v: float) -> str:
+    if math.isnan(v):
+        return "nan"
+    if math.isinf(v):
+        return "+inf" if v > 0 else "-inf"
+    return "finite"
+
+
+def hold_saturated(got: dict, want: dict, what: str):
+    """Hold saturated window results: equal keys, the same values
+    non-finite, finite values within ``RTOL_MAIN``.  NaN against +inf is
+    not a failure here (the algorithms saturate differently); the counts
+    of each pairing of kinds are returned, ``(got, want) -> n``."""
+    from collections import Counter
+
+    if got.keys() != want.keys():
+        fail(f"{what}: window keys differ ({len(got)} vs {len(want)})")
+    kinds = Counter()
+    for k, w in want.items():
+        if got[k].keys() != w.keys():
+            fail(f"{what}: aggregates differ at {k}")
+        for a, wv in w.items():
+            gv = got[k][a]
+            kinds[(_kind(gv), _kind(wv))] += 1
+            if math.isfinite(gv) != math.isfinite(wv):
+                fail(f"{what}: {k} {a} = {gv}, against {wv}")
+            if math.isfinite(wv) and abs(gv - wv) > RTOL_MAIN * abs(wv):
+                fail(f"{what}: {k} {a} = {gv}, against {wv}")
+    return dict(kinds)
+
+
+def minmax_variant(wl):
+    """fig9's workload with ``MIN(Travel.speed)`` added to q0 and
+    ``MAX(Travel.duration)`` to q1."""
+    import dataclasses
+
+    from repro_torch.core.query import Workload, agg_max, agg_min
+
+    extra = {0: agg_min("Travel", "speed"), 1: agg_max("Travel", "duration")}
+    qs = [dataclasses.replace(q, aggs=q.aggs + (extra[i],)) if i in extra
+          else q for i, q in enumerate(wl.queries)]
+    return Workload(wl.schema, qs)
+
+
+def _timed(torch, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_baselines(torch, np) -> dict:
+    """fig9's comparison on the card: GRETA on the masked kernel held
+    against its numpy oracle and against HAMLET, SHARON/MCEP/brute against
+    GRETA, MIN/MAX under HAMLET on cuda against np; then the paper-scale
+    rate, timed and split, with the kernel's count vectors held against
+    the plain versions on three windows and its time at GRETA's largest
+    shape."""
+    from repro_torch.core.baselines.brute import brute_run
+    from repro_torch.core.baselines.greta import (GretaTimers, greta_run,
+                                                  window_adjacency)
+    from repro_torch.core.baselines.mcep import mcep_run
+    from repro_torch.core.baselines.sharon import sharon_run
+    from repro_torch.core.engine import (ComponentContext, HamletRuntime,
+                                         vals_equal)
+    from repro_torch.core.events import pane_size_for
+    from repro_torch.core.optimizer import DynamicPolicy
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.hamlet_dense import dense_propagate_cuda
+    from repro_torch.kernels.hamlet_propagate import (
+        masked_prefix_propagate_cuda, masked_propagate_work)
+    from repro_torch.kernels.timing import bound, device_ms
+    from repro_torch.launch.fig9 import fig9_case
+
+    masked, dense = masked_prefix_propagate_cuda, dense_propagate_cuda
+    dev = torch.device(DEVICE)
+    rtol = lambda a: RTOL_MAIN
+    out = {"launches": {}}
+
+    def hamlet(wl, stream, t_end, backend, K=1):
+        rt = HamletRuntime(wl, policy=DynamicPolicy(), backend=backend,
+                           micro_batch=K)
+        if backend == "np":
+            t0 = time.perf_counter()
+            return rt.run(stream, t_end), time.perf_counter() - t0
+        return _timed(torch, lambda: rt.run(stream, t_end))
+
+    # 1. the finite cut
+    wl, stream, t_end = fig9_case(FIG9_FINITE)
+    _reset(masked, dense)
+    got, wall_g = _timed(torch, lambda: greta_run(wl, stream, t_end,
+                                                  backend="cuda"))
+    n_launch = masked.launches
+    out["launches"]["greta_finite"] = n_launch
+    log(f"[baselines] fig9 at {FIG9_FINITE} ev/min: {len(stream)} events, "
+        f"GRETA cuda wall {wall_g:.3f} s, {len(got)} windows, masked "
+        f"kernel launches {n_launch} at (1, n, 1) f64, n "
+        f"{min(s[1] for s in masked.shapes)}.."
+        f"{max(s[1] for s in masked.shapes)}; dense {dense.launches}")
+    if n_launch == 0:
+        fail("GRETA never launched the masked kernel")
+    if dense.launches:
+        fail("GRETA launched the dense kernel")
+    want = greta_run(wl, stream, t_end, backend="np")
+    same, finite = hold(np, got, want, rtol, "GRETA cuda vs np",
+                        exact_counts=True)
+    log(f"[baselines] GRETA cuda held against GRETA np: {same} of "
+        f"{len(want)} windows bitwise, {finite} finite values (COUNT exact "
+        f"below 2^53, rtol {RTOL_MAIN} above)")
+    ham, wall_h = hamlet(wl, stream, t_end, "cuda")
+    same, finite = hold(np, got, ham, rtol, "GRETA cuda vs HAMLET cuda",
+                        exact_counts=True)
+    log(f"[baselines] GRETA cuda held against HAMLET cuda (wall "
+        f"{wall_h:.3f} s): {same} of {len(ham)} windows bitwise, {finite} "
+        f"finite values")
+    if finite == 0:
+        fail("finite cut: no finite GRETA value was compared")
+    shar, wall_s = _timed(torch, lambda: sharon_run(wl, stream, t_end))
+    same, _ = hold(np, shar, got, rtol, "SHARON vs GRETA", exact_counts=True)
+    log(f"[baselines] SHARON (host) held against GRETA cuda: wall "
+        f"{wall_s:.3f} s, {same} of {len(got)} windows bitwise")
+    for rate in FIG9_TOY:
+        wl_t, st_t, te_t = fig9_case(rate)
+        g = greta_run(wl_t, st_t, te_t, backend="cuda")
+        for name, fn in (("MCEP", mcep_run), ("brute", brute_run)):
+            r, w = _timed(torch, lambda: fn(wl_t, st_t, te_t))
+            same, _ = hold(np, r, g, lambda a: 0.0, f"{name} vs GRETA "
+                           f"({rate} ev/min)", exact_counts=True)
+            if same != len(g):
+                fail(f"{name} vs GRETA at {rate} ev/min: {len(g) - same} "
+                     "windows differ")
+        log(f"[baselines] MCEP and brute at {rate} ev/min ({len(st_t)} "
+            f"events): {len(g)} windows bitwise equal to GRETA cuda, "
+            f"{sum(v['COUNT(*)'] for v in g.values()):.0f} trends in all")
+
+    # MIN/MAX under HAMLET: cuda (counts from the masked kernel) against np
+    wl_mm = minmax_variant(wl)
+    for K in (1, 16):
+        _reset(masked, dense)
+        got_mm, wall_mm = hamlet(wl_mm, stream, t_end, "cuda", K)
+        launches = {"hamlet_propagate": masked.launches,
+                    "hamlet_dense": dense.launches}
+        out["launches"][f"minmax_K{K}"] = launches
+        if masked.launches == 0:
+            fail(f"MIN/MAX run (K={K}) never launched the masked kernel")
+        want_mm, _ = hamlet(wl_mm, stream, t_end, "np", K)
+        same, finite = hold(np, got_mm, want_mm, rtol, f"MIN/MAX K={K}",
+                            exact_counts=True)
+        mm = 0
+        for k, w in want_mm.items():
+            if not all(math.isfinite(v) for a, v in w.items()
+                       if a.startswith("COUNT")):
+                continue
+            for a, v in w.items():
+                if a.startswith(("MIN", "MAX")):
+                    if not vals_equal({a: got_mm[k][a]}, {a: v}):
+                        fail(f"MIN/MAX K={K}: {k} {a} = {got_mm[k][a]}, "
+                             f"np {v}")
+                    mm += math.isfinite(v)
+        if mm == 0:
+            fail(f"MIN/MAX K={K}: no finite MIN/MAX value was compared")
+        log(f"[baselines] MIN/MAX K={K}: wall {wall_mm:.3f} s, kernel "
+            f"launches {launches}; held against np: {mm} finite MIN/MAX "
+            f"values bitwise, {same} of {len(want_mm)} windows bitwise, "
+            f"COUNT exact below 2^53 and rtol {RTOL_MAIN} above")
+
+    # 2. paper scale
+    wl, stream, t_end = fig9_case(FIG9_PAPER)
+    n_ev = len(stream)
+    ham, wall_h = hamlet(wl, stream, t_end, "cuda")
+    ham16, wall_h16 = hamlet(wl, stream, t_end, "cuda", 16)
+    _reset(masked, dense)
+    timers = GretaTimers()
+    got, wall_g = _timed(torch, lambda: greta_run(
+        wl, stream, t_end, backend="cuda", timers=timers))
+    greta_shapes = masked.shapes.copy()
+    out["launches"]["greta_paper"] = masked.launches
+    if masked.launches == 0:
+        fail("paper scale: GRETA never launched the masked kernel")
+    split = timers.split()
+    split["other_s"] = wall_g - sum(split.values())
+    ns = sorted(s[1] for s in greta_shapes.elements())
+    log(f"[baselines] fig9 at {FIG9_PAPER} ev/min: {n_ev} events; HAMLET "
+        f"cuda K=1 wall {wall_h:.3f} s, {n_ev / wall_h:.1f} events/s (K=16 "
+        f"{wall_h16:.3f} s, {n_ev / wall_h16:.1f} events/s); GRETA cuda wall "
+        f"{wall_g:.3f} s, {n_ev / wall_g:.1f} events/s; HAMLET K=1 / GRETA "
+        f"= {wall_g / wall_h:.2f}x")
+    log(f"[baselines] GRETA split (s, synced at each boundary): "
+        f"{ {k: round(v, 6) for k, v in split.items()} }; {timers.windows} "
+        f"windows, {timers.propagations} propagations, masked launches "
+        f"{masked.launches}, dense {dense.launches}; shapes (1, n, 1) f64, "
+        f"n {ns[0]}..{ns[-1]}, {len(greta_shapes)} distinct: "
+        f"{ {s[1]: k for s, k in sorted(greta_shapes.items())} } (n: count)")
+    kinds = hold_saturated(got, ham, "GRETA vs HAMLET, paper scale")
+    log(f"[baselines] GRETA cuda against HAMLET cuda: {len(ham)} windows, "
+        f"same keys and non-finite values; kinds (GRETA, HAMLET) -> count: "
+        f"{kinds}")
+    kinds16 = hold_saturated(ham16, ham, "HAMLET K=16 vs K=1, paper scale")
+    log(f"[baselines] HAMLET K=16 against K=1: kinds {kinds16}")
+
+    # the kernel's count vectors on group 0, query 0 against the plain
+    # versions on the card: the torch backend (doubling) and the row loop
+    run_ids = ComponentContext(wl.schema, list(wl.atomic)).relevant_type_ids
+    pane = pane_size_for(wl.windows)
+    g0, q = stream.partition_by_group()[0], wl.atomic[0]
+    windows = []
+    for w0 in range(0, t_end - q.within + 1, q.slide):
+        adj, start, _, _, _ = window_adjacency(
+            wl.schema, q, g0.time_slice(w0, w0 + q.within), run_ids, pane=pane)
+        mask = torch.as_tensor(adj, device=dev)
+        base = torch.as_tensor(start[:, None], device=dev)
+        kern = masked(base[None], mask[None])[0, :, 0].cpu().numpy()
+        plain = ops.propagate(base, mask, backend="torch",
+                              device=dev)[:, 0].cpu().numpy()
+        row = ref.torch_prefix_propagate_batched(
+            base[None], mask[None])[0, :, 0].cpu().numpy()
+        held = {}
+        for name, other in (("torch", plain), ("row loop", row)):
+            bad = ~(np.isfinite(kern) & np.isfinite(other))
+            first = int(np.argmax(bad)) if bad.any() else len(kern)
+            err = (np.abs(kern[:first] - other[:first])
+                   / np.maximum(1.0, np.abs(other[:first])))
+            held[name] = {"first_nonfinite": first,
+                          "max_rel_err": float(err.max()) if first else 0.0}
+            if held[name]["max_rel_err"] > RTOL_MAIN:
+                fail(f"group 0 q0 window {w0}: kernel and {name} differ "
+                     f"before row {first} by {held[name]['max_rel_err']}")
+        # the row loop is the kernel's plain version: the same rows saturate
+        if not all(np.array_equal(f(kern), f(row))
+                   for f in (np.isnan, np.isposinf, np.isneginf)):
+            fail(f"group 0 q0 window {w0}: the kernel's non-finite rows "
+                 "differ from the row loop's")
+        nf = {name: {"nan": int(np.isnan(v).sum()),
+                     "+inf": int(np.isposinf(v).sum())}
+              for name, v in (("kernel", kern), ("torch", plain),
+                              ("row loop", row))}
+        windows.append({"w0": w0, "n": len(kern), "held": held,
+                        "nonfinite": nf})
+        log(f"[baselines] group 0 q0 window {w0}: n {len(kern)}; rows "
+            f"before the first non-finite one held within {RTOL_MAIN}: "
+            f"{held}; non-finite rows {nf}, the kernel's at the row loop's "
+            f"positions")
+        del mask, base
+
+    # the kernel alone at GRETA's smallest and largest shape
+    rng = np.random.default_rng(3)
+    timing = {}
+    for n in (ns[0], ns[-1]):
+        base = torch.as_tensor(rng.integers(0, 2, (1, n, 1)),
+                               dtype=torch.float64, device=dev)
+        mask = torch.as_tensor(np.tril(rng.random((1, n, n)) < 0.5, -1),
+                               dtype=torch.float64, device=dev)
+        ms = device_ms(lambda: masked(base, mask), launches=10, reps=3,
+                       warmup=1, spin=5_000_000)
+        timing[n] = ms
+    bms, by = bound(*masked_propagate_work(1, ns[-1], 1), "float64")
+    neg = -mask
+    lib_ms = device_ms(lambda: torch.linalg.solve_triangular(
+        neg, base, upper=False, unitriangular=True), launches=10, reps=3,
+        warmup=1, spin=5_000_000)
+    plain_ms = wall_ms(torch, lambda: ref.torch_prefix_propagate_batched(
+        base, mask), reps=3, warmup=1)
+    del neg, mask, base
+    lo, hi = len(ns) * timing[ns[0]], len(ns) * timing[ns[-1]]
+    log(f"[baselines] masked kernel at (1, {ns[-1]}, 1) f64: "
+        f"{timing[ns[-1]]:.6f} ms (at (1, {ns[0]}, 1): "
+        f"{timing[ns[0]]:.6f}), bound {bms:.6f} ms "
+        f"({by}), share {bms / timing[ns[-1]]:.4f}; solve_triangular "
+        f"{lib_ms:.6f} ms; plain version (row loop) {plain_ms:.3f} ms; "
+        f"GRETA's {len(ns)} launches {lo:.4f}-{hi:.4f} ms of kernel time")
+    out.update({
+        "finite_cut": {"events_per_minute": FIG9_FINITE},
+        "paper": {"events_per_minute": FIG9_PAPER, "events": n_ev,
+                  "hamlet_wall_s": wall_h, "hamlet_K16_wall_s": wall_h16,
+                  "greta_wall_s": wall_g, "greta_split_s": split,
+                  "greta_launches": len(ns), "n_min": ns[0], "n_max": ns[-1],
+                  "kinds": {f"{a}|{b}": c for (a, b), c in kinds.items()},
+                  "windows_g0_q0": windows},
+        "greta_shape": {"shape": [1, ns[-1], 1], "dtype": "float64",
+                        "ms": timing[ns[-1]], "ms_at_n_min": timing[ns[0]],
+                        "bound_ms": bms, "bound_by": by,
+                        "library_ms": lib_ms, "plain_ms": plain_ms,
+                        "kernel_total_ms": [lo, hi]}})
+    return out
+
+
+def phase_obs(torch, np) -> dict:
+    """The observability facade on the card: the finite cut of the main
+    configuration with ``Observability()`` attached, bitwise equal to the
+    run without it, its phase spans against the ``RunStats`` timers; then
+    the CLI's ``--trace`` on the card."""
+    from repro_torch.core.engine import HamletRuntime, vals_equal
+    from repro_torch.launch import hamlet_service
+    from repro_torch.obs import PHASES, Observability
+
+    wl, stream, policy = main_config(FINITE_CUT)
+    want, _, _ = _run(torch, HamletRuntime, wl, stream, policy, "cuda")
+    obs = Observability()
+    rt = HamletRuntime(wl, policy=policy(), backend="cuda", micro_batch=16,
+                       plan_cache=True, fold_exec=True, obs=obs)
+    got, wall = _timed(torch, lambda: rt.run(stream))
+    if got.keys() != want.keys() or not all(vals_equal(got[k], want[k])
+                                            for k in want):
+        fail("obs: results with Observability() attached differ")
+    log(f"[obs] {MAIN_CONFIG} at {FINITE_CUT} ev/min with Observability(): "
+        f"wall {wall:.3f} s, {len(got)} windows bitwise equal to the run "
+        f"without it; {len(obs.tracer)} trace events")
+    totals = obs.phase_totals()
+    devs = {}
+    for ph in PHASES:
+        span_s, stat_s = totals.get(ph, 0.0), getattr(rt.stats, f"{ph}_s")
+        devs[ph] = abs(span_s - stat_s) / stat_s * 100 if stat_s else 0.0
+        log(f"[obs]   {ph:8s} spans={span_s * 1e3:9.3f} ms "
+            f"stats={stat_s * 1e3:9.3f} ms (dev {devs[ph]:.2f}%)")
+        if devs[ph] > 5.0:
+            fail(f"obs: {ph} spans deviate {devs[ph]:.2f}% from RunStats")
+    audit = obs.audit.summary()
+    log(f"[obs] audit: {audit}")
+    if audit["decisions"] == 0:
+        fail("obs: the audit log recorded no decision")
+    view = obs.collect(stats=rt.stats, runtime=rt)
+    log(f"[obs] collect(): {sorted(view)}; plan cache {view['plan_cache']}")
+
+    path = ROOT / "build" / "chip_smoke_trace.jsonl"
+    path.parent.mkdir(exist_ok=True)
+    hamlet_service.main(["--backend", "cuda", "--trace", str(path)])
+    lines = path.read_text().splitlines()
+    evs = [json.loads(ln) for ln in lines]
+    if not evs or not {"plan", "execute", "finalize", "fold"} <= {
+            e["name"] for e in evs if e.get("cat") == "phase"}:
+        fail(f"obs: the CLI's --trace wrote no phase spans to {path}")
+    log(f"[obs] CLI --trace on the card: {len(evs)} trace events in {path}")
+    return {"wall_s": wall, "phase_dev_pct": devs, "audit": audit,
+            "cli_trace_events": len(evs)}
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -612,6 +998,14 @@ def main() -> None:
     kernels = phase_kernels(torch, np)
     main_res = phase_main(torch, np)
     phase_cli(torch, np)
+    base_res = phase_baselines(torch, np)
+    obs_res = phase_obs(torch, np)
+    check = next(c for c in kernels["hamlet_propagate"]["checks"]
+                 if c["case"] == "solved rows in global memory")
+    log(f"[baselines] the masked kernel's global-memory variant: (1, "
+        f"{base_res['paper']['n_max']}, 1) at "
+        f"{base_res['greta_shape']['ms']:.6f} ms; the kernels phase's "
+        f"check at {tuple(check['shape'])}: {check['ms']:.6f} ms")
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro."))
@@ -621,9 +1015,15 @@ def main() -> None:
     for name, e in kernels.items():
         e["launches"] = main_res["launches"][name]
         e["main_path"] = main_res["shapes"][name]
+    hp = kernels["hamlet_propagate"]
+    hp["greta"] = dict(base_res["greta_shape"],
+                       launches=base_res["launches"])
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values()),
-                      "card": card, "config": MAIN_CONFIG}), flush=True)
+                      "card": card, "config": MAIN_CONFIG,
+                      "baselines": {k: base_res[k] for k in
+                                    ("finite_cut", "paper")},
+                      "obs": obs_res}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

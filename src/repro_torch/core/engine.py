@@ -108,8 +108,9 @@ executor reuses host staging buffers across flushes instead.
 Devices: ``HamletRuntime`` defaults to ``backend="cuda"`` (the
 hand-written kernels) on ``cuda:0`` and raises when no GPU is present;
 ``backend="torch"`` runs the plain PyTorch versions on any ``device``, and
-``backend="np"`` the numpy host oracles.  MIN/MAX aggregates are not
-ported yet and raise ``NotImplementedError``.
+``backend="np"`` the numpy host oracles.  MIN/MAX aggregates take the
+side path of :mod:`.minmax` at window close, with their trend counts from
+the same backend and device.
 
 Trend counts grow like 2^g and overflow fixed-width types for realistic panes
 (the paper is silent on this); the engine computes in float64 by default.
@@ -252,6 +253,9 @@ class ComponentContext:
             (ui, schema.type_id(u[1]),
              None if u[2] is None else schema.attr_col(u[2]))
             for ui, u in enumerate(self.units) if u[0] == "sum"]
+        # which queries need the min/max side path
+        self.minmax_queries = [qi for qi, q in enumerate(self.queries)
+                               if any(u[0] == "minmax" for u in q.units)]
 
     def match_vec(self, qi: int, type_id: int, attrs: np.ndarray) -> np.ndarray:
         ps = self._preds.get((qi, type_id), ())
@@ -1767,6 +1771,7 @@ class PaneMicroBatcher:
 class _Instance:
     start: int
     u: np.ndarray
+    events: list = field(default_factory=list)  # retained only for min/max
 
 
 def fold_panes(Ms: list[np.ndarray], u0: np.ndarray) -> np.ndarray:
@@ -1818,12 +1823,6 @@ class HamletRuntime:
                  fold_exec: bool = True, obs=None, device=None):
         from .optimizer import DynamicPolicy
 
-        minmax = [q.name for q in workload.atomic
-                  if any(u[0] == "minmax" for u in q.units)]
-        if minmax:
-            raise NotImplementedError(
-                f"MIN/MAX aggregates (queries {minmax}) are not ported yet: "
-                "ROADMAP Queue 1, 'core/minmax.py + core/baselines/'")
         # raises when a GPU is asked for (the default) and none is present
         self.device = resolve_device(backend, device)
         self.workload = workload
@@ -1951,6 +1950,7 @@ class HamletRuntime:
             # open new instances whose window starts at this pane
             if t0 % q.slide == 0 and t0 + q.within <= t_end:
                 insts[ci][t0] = _Instance(t0, ctx.layout.fresh_state())
+            needs_minmax = ci in ctx.minmax_queries
             t_fold = perf_counter()
             advance_instances(M[ci], insts[ci])
             d = perf_counter() - t_fold
@@ -1959,6 +1959,8 @@ class HamletRuntime:
                 fold_t0 = t_fold
             fold_dt += d
             for w0, inst in list(insts[ci].items()):
+                if needs_minmax and len(pane_ev):
+                    inst.events.append(pane_ev)
                 if w0 + q.within == t0 + self.pane:
                     out[(aqi, group_key, w0)] = self._emit(
                         ctx, ci, q, inst, group_key)
@@ -1988,6 +1990,15 @@ class HamletRuntime:
                 s = u[ctx.layout.rp_idx(("sum", agg.type_name, agg.attr))]
                 c = u[ctx.layout.rp_idx(("sum", agg.type_name, None))]
                 vals[repr(agg)] = float(s / c) if c else float("nan")
+            elif agg.kind in (AggKind.MIN, AggKind.MAX):
+                from .minmax import window_minmax
+
+                evs = (EventBatch.concat(inst.events) if inst.events
+                       else None)
+                vals[repr(agg)] = window_minmax(
+                    self.workload.schema, q, evs, agg,
+                    run_type_ids=ctx.relevant_type_ids, pane=self.pane,
+                    backend=self.backend, device=self.device)
         return vals
 
     # -- Or/And combination (Sec. 5) --

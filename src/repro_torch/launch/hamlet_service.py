@@ -11,9 +11,18 @@ iterates them):
 the default; ``torch``: their plain PyTorch versions; ``np``: the numpy
 host oracles) and ``--device`` the torch device (default ``cuda:0``; the
 run fails when no GPU is present unless ``--backend np`` or ``--device
-cpu`` is given).  The other modes of the JAX package's launcher —
-``--overload``, ``--shards``, ``--serve``, ``--listen``/``--connect`` and
-``--trace`` — are not ported yet and exit with an error.
+cpu`` is given).
+
+``--trace out.jsonl`` attaches the observability layer
+(:class:`repro_torch.obs.Observability`): pane-lifecycle spans are exported
+as Chrome-trace JSONL (convert with ``python -m repro_torch.obs.trace
+out.jsonl out.json`` and load in Perfetto), and the run report gains the
+per-phase span-sum vs ``RunStats`` check plus the sharing-decision audit
+summary; ``--trace-sample N`` traces every Nth pane's track.
+
+The other modes of the JAX package's launcher — ``--overload``,
+``--shards``, ``--serve`` and ``--listen``/``--connect`` — are not ported
+yet and exit with an error.
 """
 
 from __future__ import annotations
@@ -25,13 +34,14 @@ from ..core.engine import HamletRuntime
 from ..core.optimizer import AlwaysShare, DynamicPolicy, FlopPolicy, NeverShare
 from ..core.pattern import EventType, Kleene, Not, Seq
 from ..core.query import Pred, Query, Workload, agg_avg, agg_sum, count_star
+from ..obs import PHASES, Observability
 from ..streams.generator import RIDESHARING_SCHEMA, ridesharing_stream
 
 POLICIES = {"dynamic": DynamicPolicy, "always": AlwaysShare,
             "never": NeverShare, "flop": FlopPolicy}
 
 # modes of the JAX package's launcher that this port does not have yet
-UNPORTED = ("overload", "serve", "shards", "listen", "connect", "trace")
+UNPORTED = ("overload", "serve", "shards", "listen", "connect")
 
 
 def ridesharing_workload(n_queries: int = 3) -> Workload:
@@ -80,19 +90,56 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.add_argument(f"--{flag}", action="store_true",
                         help="not yet ported")
     ap.add_argument("--shards", type=int, default=0, help="not yet ported")
-    for flag in ("listen", "connect", "trace"):
+    for flag in ("listen", "connect"):
         ap.add_argument(f"--{flag}", default=None, help="not yet ported")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="attach the observability layer and export the "
+                         "pane-span trace as Chrome-trace JSONL")
+    ap.add_argument("--trace-sample", type=int, default=1,
+                    help="per-pane track sampling: trace every Nth pane")
     return ap.parse_args(argv)
+
+
+def _make_obs(args) -> Observability | None:
+    if not args.trace:
+        return None
+    return Observability(sample=args.trace_sample)
+
+
+def _obs_report(obs: Observability, path: str, stats) -> None:
+    """Export the trace and print the observability run report: span sums
+    checked against the RunStats phase timers, plus the audit summary."""
+    n = obs.export_trace(path)
+    print(f"trace: {n} events -> {path} "
+          f"(dropped={obs.tracer.dropped}, sample={obs.tracer.sample}); "
+          f"perfetto: python -m repro_torch.obs.trace {path} "
+          f"{path}.chrome.json")
+    totals = obs.phase_totals()
+    for ph in PHASES:
+        span_s = totals.get(ph, 0.0)
+        stat_s = getattr(stats, f"{ph}_s")
+        dev = abs(span_s - stat_s) / stat_s * 100 if stat_s else 0.0
+        print(f"  {ph:8s} spans={span_s * 1e3:9.2f} ms "
+              f"stats={stat_s * 1e3:9.2f} ms (dev {dev:.2f}%)")
+    if obs.audit is not None:
+        a = obs.audit.summary()
+        print(f"audit: {a['decisions']} decisions "
+              f"(shared={a['shared']} split={a['split']} "
+              f"flips={a['flips']} sites={a['sites']} "
+              f"dropped={a['dropped']})")
 
 
 def run_default(args: argparse.Namespace):
     """The default mode: the ridesharing workload over a bursty
-    ridesharing stream.  Returns ``(results, runtime, stream, wall_s)``."""
+    ridesharing stream, with the observability layer attached when
+    ``--trace`` is given (``runtime.obs``).  Returns ``(results, runtime,
+    stream, wall_s)``."""
     wl = ridesharing_workload(args.queries)
     batch = ridesharing_stream(events_per_minute=args.events_per_minute,
                                minutes=args.minutes, n_groups=args.groups)
     rt = HamletRuntime(wl, policy=POLICIES[args.policy](),
-                       backend=args.backend, device=args.device)
+                       backend=args.backend, device=args.device,
+                       obs=_make_obs(args))
     t0 = time.time()
     res = rt.run(batch, t_end=args.minutes * 60)
     return res, rt, batch, time.time() - t0
@@ -106,6 +153,8 @@ def main(argv=None):
                          "package (use repro.launch.hamlet_service)")
     res, rt, batch, dt = run_default(args)
     s = rt.stats
+    if rt.obs is not None:
+        _obs_report(rt.obs, args.trace, s)
     print(f"policy={args.policy} backend={args.backend} device={rt.device} "
           f"events={len(batch)} windows={s.windows_emitted} "
           f"results={len(res)}")

@@ -12,6 +12,9 @@ numpy oracle of ``tests/test_fold_exec.py`` — on inputs carried across with
   in another order than numpy's);
 * fold-chain depths {3, 8, 24} and the 1100-event overflow chain, whose
   saturated windows must carry the same inf/NaN pattern;
+* MIN/MAX aggregates (the fuzz workload of
+  ``tests/test_engine_correctness.py``) bitwise on the np and torch
+  backends at K in {1, 4};
 * within the port, the reference's twin contracts exactly: batched equals
   per-burst, results do not change with K, and a warm flush is one logical
   launch at any depth.
@@ -264,8 +267,62 @@ def test_fold_windows_matches_fold_panes():
         np.testing.assert_allclose(g, ref_fold_panes(Ms, u0), rtol=1e-12)
 
 
-def test_minmax_not_ported():
-    wl = Workload(SCHEMA, [Query("q", Seq(A, Kleene(B)),
-                                 aggs=(agg_min("B", "v"),))])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HamletRuntime(port_wl(wl), **DEV)
+# ----------------------------------------------------------- MIN / MAX
+
+
+def minmax_case(seed):
+    """``tests/test_engine_correctness.py::test_fuzz_against_brute_and_greta``'s
+    workload (q3 takes MIN, q5 MAX, beside COUNT, SUM, AVG, negation and
+    edge predicates) over its fuzz stream for ``seed``, trial 0."""
+    from repro.core.events import EventBatch, StreamSchema
+    from repro.core.pattern import Not
+    from repro.core.query import (EdgePred, Pred, agg_avg, agg_max,
+                                  count_type)
+
+    schema = StreamSchema(types=("A", "B", "C", "X"), attrs=("v", "w"))
+    a, b, c, x = map(EventType, "ABCX")
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(4, 15))
+    types = rng.integers(0, 4, n)
+    times = np.sort(rng.choice(np.arange(1, 40), size=n, replace=False))
+    attrs = rng.integers(0, 5, (n, 2)).astype(float)
+    groups = rng.integers(0, 2, n)
+    batch = EventBatch(schema, types, times, attrs, groups)
+    qs = [
+        Query("q1", Seq(a, Kleene(b)),
+              aggs=(count_star(), agg_sum("B", "v"), agg_avg("B", "v")),
+              preds={"B": [Pred("v", "<", 4)]}, within=20, slide=10),
+        Query("q2", Seq(c, Kleene(b)),
+              aggs=(count_star(), count_type("B")), within=40, slide=20),
+        Query("q3", Kleene(b), aggs=(count_star(), agg_min("B", "w")),
+              edge_preds={"B": [EdgePred("v", "<=")]}, within=20, slide=20),
+        Query("q4", Seq(a, Kleene(b), c, Not(x)), aggs=(count_star(),),
+              within=40, slide=40),
+        Query("q5", Seq(a, Not(x), Kleene(b)),
+              aggs=(count_star(), agg_max("B", "v")), within=20, slide=20),
+    ]
+    return Workload(schema, qs), batch
+
+
+@pytest.mark.parametrize("backend", ["np", "torch"])
+@pytest.mark.parametrize("K", [1, 4])
+def test_minmax_matches_reference(K, backend):
+    """MIN/MAX windows (the side path of ``core/minmax.py``, its trend
+    counts from the runtime's own backend) bitwise equal to the
+    reference's ``HamletRuntime`` in every finite window, over eight fuzz
+    seeds; every window of these streams is finite."""
+    dev = dict(backend=backend, device="cpu" if backend == "torch" else None)
+    minmax_seen = 0
+    for seed in range(8):
+        wl, batch = minmax_case(seed)
+        want = RefRuntime(wl, micro_batch=K).run(batch, 40)
+        got = HamletRuntime(port_wl(wl), micro_batch=K, **dev).run(
+            port_stream(batch), 40)
+        assert got.keys() == want.keys(), seed
+        for k, w in want.items():
+            assert all(math.isfinite(v) for a, v in w.items()
+                       if a.startswith("COUNT")), (seed, k)
+            assert vals_equal(got[k], w), (seed, k, got[k], w)
+            minmax_seen += sum(math.isfinite(v) for a, v in w.items()
+                               if a.startswith(("MIN", "MAX")))
+    assert minmax_seen > 0

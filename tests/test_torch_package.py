@@ -6,8 +6,9 @@
 * without a CUDA device the default entry points raise instead of
   running on the CPU, and ``chip_smoke.py`` exits non-zero, printing no
   result — in the checkout and alone in a directory;
-* the service CLI's default mode runs on a backend the caller asks for, and
-  its modes that are not ported yet exit with an error.
+* the service CLI's default mode runs on a backend the caller asks for,
+  ``--trace`` writes a Chrome-trace JSONL beside its report, and the modes
+  that are not ported yet exit with an error.
 """
 
 import json
@@ -52,11 +53,15 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert "repro_torch.core.engine" in names and "repro_torch.interop" in names
+for n in ("repro_torch.core.baselines.greta", "repro_torch.core.minmax",
+          "repro_torch.obs.facade", "repro_torch.obs.audit",
+          "repro_torch.streams.partition", "repro_torch.launch.fig9"):
+    assert n in names, n
 """
     r = _run(["-c", code])
     assert r.returncode == 0, r.stderr
     n = int(r.stdout.split()[0])
-    assert n >= 25, r.stdout
+    assert n >= 35, r.stdout
 
 
 def test_default_runtime_needs_a_gpu():
@@ -140,12 +145,33 @@ def test_cli_refuses_unported_modes_and_missing_gpu():
     from repro_torch.launch import hamlet_service
 
     for flags in (["--overload"], ["--serve"], ["--shards", "2"],
-                  ["--listen", "127.0.0.1:0"], ["--trace", "x.jsonl"]):
+                  ["--listen", "127.0.0.1:0"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             hamlet_service.main(flags + ["--backend", "np"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             hamlet_service.main(["--minutes", "1"])
+
+
+def test_cli_trace_on_the_host(tmp_path):
+    """``--trace`` exports the pane spans as Chrome-trace JSONL and prints
+    the span-sum check per phase and the audit summary."""
+    path = tmp_path / "trace.jsonl"
+    r = _run(["-m", "repro_torch.launch.hamlet_service", "--backend", "np",
+              "--minutes", "1", "--events-per-minute", "200", "--trace",
+              str(path), "--trace-sample", "2"])
+    assert r.returncode == 0, r.stderr
+    evs = [json.loads(ln) for ln in path.read_text().splitlines()]
+    assert evs and all({"ph", "name", "cat", "ts"} <= e.keys() for e in evs)
+    assert {e["name"] for e in evs if e.get("cat") == "phase"} >= {
+        "plan", "execute", "finalize", "fold"}
+    out = r.stdout
+    assert f"trace: {len(evs)} events -> {path}" in out
+    assert "sample=2" in out and "python -m repro_torch.obs.trace" in out
+    for ph in ("plan", "execute", "finalize", "fold"):
+        assert f"  {ph}" in out
+    assert "audit: " in out and "decisions" in out
+    assert "backend=np" in out
 
 
 def test_build_needs_nvcc(tmp_path, monkeypatch):
