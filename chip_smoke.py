@@ -47,12 +47,30 @@ Phases, in order; a failure in any of them exits non-zero:
               kernel's count vectors on three windows held against the
               plain versions on the card, and the kernel alone at GRETA's
               smallest and largest shape with its bound and
-              ``solve_triangular``;
+              ``solve_triangular``; between them, at 8,000 ev/min for one
+              minute, GRETA and the MIN/MAX variant on cuda held to the
+              row loop wherever the numpy doubling overflows while the row
+              loop stays finite (``ref.exact_oracle``);
 7. obs      — the finite cut of the main configuration with
               ``Observability()`` attached, bitwise equal to the run without
               it, phase spans against the ``RunStats`` timers and the audit
               summary; then the CLI's ``--trace`` on the card into
-              ``build/chip_smoke_trace.jsonl``.
+              ``build/chip_smoke_trace.jsonl``;
+8. stream   — the streaming layers on the card: ``HamletService`` fed the
+              main configuration in one-minute chunks (every window equal
+              to the main phase's batch run; its 1,000 ev/min cut against
+              the np service); ``OverloadRuntime`` on fig_overload's
+              SLO-control stream with fixed shedding (shed sets, the error
+              accountant and windows against np; K 1 and 4, pipelined)
+              and with the live controller at 2x the calibrated capacity
+              (per-pane p50/p99 ms against the SLO, shed fraction, recall,
+              the device's busy share; shedding's end-to-end p99 must fall
+              below the unshed run's); ``EventTimeRuntime`` on
+              fig_disorder's ridesharing row, speculative and buffered,
+              against the in-order cuda run and the in-order np run (the
+              cuda run first held against np), with ``ops.fold_stacked``'s
+              device time in the revision storms from the profiler, and the
+              service's event-time mode on the same stream.
 
 Each path's kernel launches are counted from zero just before it runs; a
 path that should launch a kernel and did not fails the run.
@@ -535,7 +553,7 @@ def phase_main(torch, np) -> dict:
     for t, key, n in rows[:8]:
         log(f"[main]   {t / 1e3:10.3f} ms  x{n:<6d} {key[:90]}")
     return {"launches": launches, "wall_s": wall, "events": len(stream),
-            "windows": len(want), "bitwise": same,
+            "windows": len(want), "bitwise": same, "results": got,
             "shapes": {name: shape_report(
                 torch, np, name, counts,
                 sum(t for t, key, _ in rows if PROFILER_KEYS[name] in key)
@@ -632,6 +650,11 @@ def phase_cli(torch, np) -> None:
 FIG9_FINITE = 1000
 FIG9_PAPER = 20000
 FIG9_TOY = (30, 60)
+# fig9 at 8,000 ev/min for one minute: the counts of some windows are
+# finite but past the numpy doubling's range (see phase_large_finite)
+FIG9_LARGE = 8000
+# the MIN/MAX variant's extra aggregates, by query index (minmax_variant)
+MINMAX_AGGS = (0, 1)
 DEVICE = "cuda:0"
 
 
@@ -649,12 +672,17 @@ def _kind(v: float) -> str:
     return "finite"
 
 
-def hold_saturated(got: dict, want: dict, what: str):
+def hold_saturated(got: dict, want: dict, what: str, row_loop=None):
     """Hold saturated window results: equal keys, the same values
     non-finite, finite values within ``RTOL_MAIN``.  NaN against +inf is
     not a failure here (the algorithms saturate differently); the counts
-    of each pairing of kinds are returned, ``(got, want) -> n``."""
+    of each pairing of kinds are returned, ``(got, want) -> n``.  With
+    ``row_loop`` (the row loop's values under the same keys) each value is
+    held against ``exact_oracle(want, row_loop)``; the values held to the
+    row loop are counted under ``("finite", "row loop")``."""
     from collections import Counter
+
+    from repro_torch.kernels.ref import exact_oracle
 
     if got.keys() != want.keys():
         fail(f"{what}: window keys differ ({len(got)} vs {len(want)})")
@@ -664,11 +692,15 @@ def hold_saturated(got: dict, want: dict, what: str):
             fail(f"{what}: aggregates differ at {k}")
         for a, wv in w.items():
             gv = got[k][a]
-            kinds[(_kind(gv), _kind(wv))] += 1
+            src = "doubling"
+            if row_loop is not None:
+                wv, src = exact_oracle(wv, row_loop[k][a])
+            kinds[(_kind(gv), "row loop" if src == "row loop"
+                   else _kind(wv))] += 1
             if math.isfinite(gv) != math.isfinite(wv):
-                fail(f"{what}: {k} {a} = {gv}, against {wv}")
+                fail(f"{what}: {k} {a} = {gv}, against {wv} ({src})")
             if math.isfinite(wv) and abs(gv - wv) > RTOL_MAIN * abs(wv):
-                fail(f"{what}: {k} {a} = {gv}, against {wv}")
+                fail(f"{what}: {k} {a} = {gv}, against {wv} ({src})")
     return dict(kinds)
 
 
@@ -679,7 +711,8 @@ def minmax_variant(wl):
 
     from repro_torch.core.query import Workload, agg_max, agg_min
 
-    extra = {0: agg_min("Travel", "speed"), 1: agg_max("Travel", "duration")}
+    extra = dict(zip(MINMAX_AGGS, (agg_min("Travel", "speed"),
+                                   agg_max("Travel", "duration"))))
     qs = [dataclasses.replace(q, aggs=q.aggs + (extra[i],)) if i in extra
           else q for i, q in enumerate(wl.queries)]
     return Workload(wl.schema, qs)
@@ -807,6 +840,9 @@ def phase_baselines(torch, np) -> dict:
             f"values bitwise, {same} of {len(want_mm)} windows bitwise, "
             f"COUNT exact below 2^53 and rtol {RTOL_MAIN} above")
 
+    # 1b. counts large but finite: fig9 at 8,000 ev/min for one minute
+    out["large_finite"] = phase_large_finite(torch, np, hamlet)
+
     # 2. paper scale
     wl, stream, t_end = fig9_case(FIG9_PAPER)
     n_ev = len(stream)
@@ -927,6 +963,147 @@ def phase_baselines(torch, np) -> dict:
     return out
 
 
+def phase_large_finite(torch, np, hamlet) -> dict:
+    """fig9 at ``FIG9_LARGE`` ev/min for one minute (8,000 events, window 0
+    of 4 groups x 5 queries, 1,971-2,034 events a GRETA window), where some
+    counts are finite but past ~1e154: the numpy path's doubling overflows
+    into NaN there while the row loop, the exact path, stays finite.  GRETA
+    on the masked kernel is held against HAMLET on cuda (as at paper
+    scale) and against the exact-path oracle (``ref.exact_oracle``: the
+    numpy path, or the row loop where only the row loop is finite); the MIN/MAX
+    variant on cuda at K 1 and 16 against the same rule, with MIN/MAX
+    computed on the host from the doubling's and the row loop's counts.
+    The doubling is run only where the row loop is finite (where the exact
+    count overflows, every float path does)."""
+    from repro_torch.core.baselines.greta import (_minmax_propagate,
+                                                  greta_run,
+                                                  window_adjacency)
+    from repro_torch.core.engine import ComponentContext
+    from repro_torch.core.events import pane_size_for
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.hamlet_dense import dense_propagate_cuda
+    from repro_torch.kernels.hamlet_propagate import \
+        masked_prefix_propagate_cuda
+    from repro_torch.launch.fig9 import fig9_case
+
+    masked, dense = masked_prefix_propagate_cuda, dense_propagate_cuda
+    wl, stream, t_end = fig9_case(FIG9_LARGE, minutes=1)
+    _reset(masked, dense)
+    got, wall_g = _timed(torch, lambda: greta_run(wl, stream, t_end,
+                                                  backend="cuda"))
+    n_launch = masked.launches
+    if n_launch == 0:
+        fail(f"GRETA at {FIG9_LARGE} ev/min never launched the masked kernel")
+    ham, wall_h = hamlet(wl, stream, t_end, "cuda")
+    kinds_h = hold_saturated(got, ham, f"GRETA vs HAMLET at {FIG9_LARGE}")
+
+    # the oracles per window: the row loop (host) everywhere, the numpy
+    # path (the doubling) where the row loop is finite
+    run_ids = ComponentContext(wl.schema, list(wl.atomic)).relevant_type_ids
+    pane = pane_size_for(wl.windows)
+    t0 = time.perf_counter()
+    np_path, row_loop, counts = {}, {}, {}
+    for g, gb in sorted(stream.partition_by_group().items()):
+        ev = gb.time_slice(0, 60)
+        for qi, q in enumerate(wl.atomic):
+            adj, start, end_valid, _, sub = window_adjacency(
+                wl.schema, q, ev, run_ids, pane=pane)
+            with np.errstate(over="ignore", invalid="ignore"):
+                row = ref.numpy_prefix_propagate(start[:, None], adj)[:, 0]
+                total = float((row * end_valid).sum())
+                dbl = None
+                if math.isfinite(total) or qi in MINMAX_AGGS:
+                    dbl = ops.propagate(start[:, None], adj,
+                                        backend="np")[:, 0]
+                key = (q.name, g, 0)
+                row_loop[key] = {"COUNT(*)": total}
+                np_path[key] = {"COUNT(*)": float((dbl * end_valid).sum())
+                                if dbl is not None else total}
+            counts[key] = (adj, start, end_valid, sub, row, dbl)
+    oracle_s = time.perf_counter() - t0
+    kinds = hold_saturated(got, np_path, f"GRETA cuda at {FIG9_LARGE} vs the "
+                           "exact-path oracle", row_loop=row_loop)
+    same = sum(1 for k, w in np_path.items()
+               if math.isfinite(w["COUNT(*)"]) and got[k] == w)
+    to_row = kinds.get(("finite", "row loop"), 0)
+    saturated = sum(1 for w in row_loop.values()
+                    if not math.isfinite(w["COUNT(*)"]))
+    log(f"[baselines] fig9 at {FIG9_LARGE} ev/min: {len(stream)} events, "
+        f"{len(got)} windows; GRETA cuda wall {wall_g:.3f} s ({n_launch} "
+        f"masked launches), HAMLET cuda {wall_h:.3f} s; oracles on the host "
+        f"{oracle_s:.3f} s")
+    log(f"[baselines] GRETA cuda against the exact-path oracle: {same} "
+        f"windows bitwise equal to the numpy path, {to_row} held to the row "
+        f"loop (numpy path non-finite, row loop finite) within rtol "
+        f"{RTOL_MAIN}, {saturated} saturated (row loop non-finite, same "
+        f"non-finite windows); kinds {kinds}")
+    log(f"[baselines] GRETA cuda against HAMLET cuda: kinds (GRETA, HAMLET) "
+        f"{kinds_h}")
+    if to_row == 0:
+        fail(f"fig9 at {FIG9_LARGE}: no window was held to the row loop")
+
+    # the MIN/MAX variant against the same rule
+    wl_mm = minmax_variant(wl)
+    mm_want, mm_row, mm_np = {}, {}, {}
+    for (qn, g, w0), (adj, start, end_valid, sub, row, dbl) in counts.items():
+        qi = int(qn[1:])
+        if qi not in MINMAX_AGGS:
+            continue
+        agg = wl_mm.atomic[qi].aggs[-1]
+        with np.errstate(over="ignore", invalid="ignore"):
+            v_np = _minmax_propagate(wl.schema, agg, sub, adj, dbl, start,
+                                     end_valid)
+            v_row = _minmax_propagate(wl.schema, agg, sub, adj, row, start,
+                                      end_valid)
+        mm_np[(qn, g, w0)] = v_np
+        mm_row[(qn, g, w0)] = v_row
+        mm_want[((qn, g, w0), repr(agg))] = ref.exact_oracle(v_np, v_row)
+    held = {}
+    for K in (1, 16):
+        _reset(masked, dense)
+        got_mm, wall_mm = hamlet(wl_mm, stream, t_end, "cuda", K)
+        launches = {"hamlet_propagate": masked.launches,
+                    "hamlet_dense": dense.launches}
+        if masked.launches == 0:
+            fail(f"MIN/MAX at {FIG9_LARGE} (K={K}) never launched the "
+                 "masked kernel")
+        n_row = 0
+        for (key, a), (want, src) in mm_want.items():
+            gv = got_mm[key][a]
+            if not (gv == want or (math.isnan(gv) and math.isnan(want))):
+                fail(f"MIN/MAX at {FIG9_LARGE} K={K}: {key} {a} = {gv}, "
+                     f"against {want} ({src})")
+            n_row += src == "row loop"
+        for key, w in ham.items():
+            if not vals_equal_counts(got_mm[key], w):
+                fail(f"MIN/MAX at {FIG9_LARGE} K={K}: COUNT at {key} differs "
+                     "from the run without MIN/MAX")
+        held[K] = n_row
+        log(f"[baselines] MIN/MAX at {FIG9_LARGE} ev/min K={K}: wall "
+            f"{wall_mm:.3f} s, kernel launches {launches}; {len(mm_want)} "
+            f"MIN/MAX values bitwise equal to the exact-path oracle, {n_row} "
+            f"of them held to the row loop (numpy path NaN); COUNT equal to "
+            f"the run without MIN/MAX")
+    if 0 in held.values():
+        fail(f"MIN/MAX at {FIG9_LARGE}: no value was held to the row loop")
+    log(f"[baselines] MIN/MAX values at {FIG9_LARGE} ev/min (numpy path / "
+        f"row loop): "
+        f"{ {f'{k[0]} g{k[1]}': (mm_np[k], mm_row[k]) for k in mm_np} }")
+    return {"events_per_minute": FIG9_LARGE, "windows": len(got),
+            "bitwise": same, "held_to_row_loop": to_row,
+            "saturated": saturated, "minmax_held_to_row_loop": held[1],
+            "greta_launches": n_launch}
+
+
+def vals_equal_counts(a: dict, b: dict) -> bool:
+    """The COUNT aggregates of two window results, equal as ``vals_equal``
+    takes them (NaN equal to NaN)."""
+    from repro_torch.core.engine import vals_equal
+
+    pick = lambda r: {k: v for k, v in r.items() if k.startswith("COUNT")}
+    return vals_equal(pick(a), pick(b))
+
+
 def phase_obs(torch, np) -> dict:
     """The observability facade on the card: the finite cut of the main
     configuration with ``Observability()`` attached, bitwise equal to the
@@ -977,6 +1154,432 @@ def phase_obs(torch, np) -> dict:
             "cli_trace_events": len(evs)}
 
 
+# --------------------------------------------------------------------------
+# the streaming layers: service, overload (load shedding), event time
+# --------------------------------------------------------------------------
+
+
+def _kernel_fns():
+    from repro_torch.kernels.hamlet_dense import dense_propagate_cuda
+    from repro_torch.kernels.hamlet_propagate import \
+        masked_prefix_propagate_cuda
+
+    return {"hamlet_propagate": masked_prefix_propagate_cuda,
+            "hamlet_dense": dense_propagate_cuda}
+
+
+def _launches() -> dict:
+    return {name: fn.launches for name, fn in _kernel_fns().items()}
+
+
+def device_split(prof, name: str) -> dict:
+    """Device work launched inside the profiler ranges called ``name``
+    (``record_function``): kernels and copies by count and device ms, and
+    the host time of the ranges."""
+    import torch
+
+    out = {"kernels": 0, "kernel_ms": 0.0, "copies": 0, "copy_ms": 0.0,
+           "host_ms": 0.0}
+    for ev in prof.events():
+        if ev.name != name or ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        out["host_ms"] += ev.cpu_time_total / 1e3
+        stack = [ev]
+        while stack:
+            e = stack.pop()
+            for k in e.kernels:
+                kind = "copies" if "memcpy" in k.name.lower() else "kernels"
+                out[kind] += 1
+                out["copy_ms" if kind == "copies" else "kernel_ms"] += \
+                    k.duration / 1e3
+            stack.extend(e.cpu_children)
+    out["device_ms"] = out["kernel_ms"] + out["copy_ms"]
+    return out
+
+
+def busy_share(prof, wall_s: float) -> float:
+    """Device activity (kernels and copies) over a wall time."""
+    import torch
+
+    dev_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return dev_us / 1e6 / wall_s
+
+
+def record_plans(shedder) -> list:
+    """Wrap ``shedder.plan`` to log every plan's kept and shed index sets."""
+    log_ = []
+    if shedder is None:
+        return log_
+    plan = shedder.plan
+
+    def logged(pane, keep_n):
+        pl = plan(pane, keep_n)
+        log_.append((pl.keep.tolist(), pl.shed.tolist(), pl.witnessed))
+        return pl
+    shedder.plan = logged
+    return log_
+
+
+def accountant_state(acc) -> tuple:
+    """The error accountant cell by cell, with its reports."""
+    import dataclasses
+
+    return ({k: list(v) for k, v in acc._shed.items()}, set(acc._tainted),
+            acc.total_shed, acc.late_events,
+            {n: dataclasses.astuple(r) for n, r in acc.report().items()})
+
+
+def stream_service(torch, np, main_res) -> dict:
+    """``HamletService`` on the card, fed the main configuration in arrival
+    chunks of one stream minute: every window against the main phase's
+    batch run on cuda (``vals_equal``); then the finite cut against the
+    np service."""
+    from repro_torch.core.engine import vals_equal
+    from repro_torch.core.service import HamletService
+
+    def feed(wl, stream, policy, backend):
+        svc = HamletService(wl.schema, wl.queries, policy=policy(),
+                            backend=backend, micro_batch=16)
+        got = {}
+        t0 = time.perf_counter()
+        for m in range(0, int(stream.time.max()) + 1, 60):
+            got.update(svc.feed(stream.time_slice(m, m + 60)))
+        got.update(svc.close())
+        if backend != "np":
+            torch.cuda.synchronize()
+        return got, svc, time.perf_counter() - t0
+
+    wl, stream, policy = main_config()
+    _reset(*_kernel_fns().values())
+    got, svc, wall = feed(wl, stream, policy, "cuda")
+    launches = _launches()
+    want = main_res["results"]
+    if got.keys() != want.keys():
+        fail(f"service: window keys differ from the batch run ({len(got)} "
+             f"vs {len(want)})")
+    bad = [k for k in want if not vals_equal(got[k], want[k])]
+    if bad:
+        fail(f"service: {len(bad)} windows differ from the batch run, e.g. "
+             f"{bad[0]}: {got[bad[0]]} vs {want[bad[0]]}")
+    epochs = svc._t_done // svc._epoch_len
+    overlap = svc.stats.events / len(stream)
+    log(f"[stream] service on cuda, {MAIN_CONFIG} ({len(stream)} events) in "
+        f"one-minute chunks: wall {wall:.3f} s, {len(stream) / wall:.1f} "
+        f"events/s, {epochs} epochs of {svc._epoch_len} ticks, "
+        f"{svc.stats.events} events replayed (overlap factor "
+        f"{overlap:.3f}); {len(got)} windows, all equal to the batch run "
+        f"(vals_equal); kernel launches {launches}")
+    wl_c, stream_c, _ = main_config(FINITE_CUT)
+    got_c, _, wall_c = feed(wl_c, stream_c, policy, "cuda")
+    want_c, _, wall_np = feed(wl_c, stream_c, policy, "np")
+    same, finite = hold(np, got_c, want_c, lambda a: RTOL_MAIN,
+                        "service finite cut", exact_counts=True)
+    if finite == 0:
+        fail("service finite cut: no finite value was compared")
+    log(f"[stream] service at {FINITE_CUT} ev/min ({len(stream_c)} events): "
+        f"cuda {wall_c:.3f} s, np {wall_np:.3f} s; held against the np "
+        f"service: {same} of {len(want_c)} windows bitwise, {finite} finite "
+        f"values (COUNT exact below 2^53, rtol {RTOL_MAIN} above)")
+    return {"events": len(stream), "wall_s": wall,
+            "events_per_s": len(stream) / wall, "epochs": epochs,
+            "replayed_events": svc.stats.events, "overlap": overlap,
+            "windows": len(got), "launches": launches,
+            "finite_cut_bitwise": same}
+
+
+def stream_overload(torch, np) -> dict:
+    """``OverloadRuntime`` on the card on fig_overload's SLO-control stream:
+    fixed shedding against np (shed sets and error reports bitwise, windows
+    held), then the live controller at 2x the calibrated cuda capacity,
+    each policy run once more under the profiler for the device's busy
+    share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.engine import HamletRuntime
+    from repro_torch.launch.fig_overload import (detection_recall,
+                                                 fragmented_stream,
+                                                 slo_control_case)
+    from repro_torch.overload import OverloadConfig, OverloadRuntime
+
+    wl, stream, t_end = slo_control_case()
+    log(f"[stream] overload: fig_overload slo_control, {len(stream)} events, "
+        f"{len(wl.queries)} queries, t_end {t_end}")
+
+    def run(backend, **cfg):
+        ort = OverloadRuntime(wl, OverloadConfig(**cfg), backend=backend)
+        plans = record_plans(ort.shedder)
+        t0 = time.perf_counter()
+        res = ort.run(stream, t_end)
+        ort.shutdown()
+        if backend != "np":
+            torch.cuda.synchronize()
+        return res, ort, plans, time.perf_counter() - t0
+
+    counts = lambda ort: [(p.t0, p.offered, p.admitted, p.shed, p.shed_ratio)
+                          for p in ort.metrics.panes]
+    launches = {name: 0 for name in _kernel_fns()}
+    fixed = []
+    for policy in ("drop_tail", "random", "benefit_weighted"):
+        want, ref, ref_plans, wall_np = run("np", shed_policy=policy,
+                                            fixed_shed=0.5)
+        variants = [{"micro_batch": 1}, {"micro_batch": 4}]
+        if policy == "benefit_weighted":
+            variants.append({"micro_batch": 4, "pipeline_flush": True})
+        for extra in variants:
+            _reset(*_kernel_fns().values())
+            got, ort, plans, wall = run("cuda", shed_policy=policy,
+                                        fixed_shed=0.5, **extra)
+            n = _launches()
+            for name, k in n.items():
+                launches[name] += k
+            what = f"overload {policy} {extra}"
+            if plans != ref_plans:
+                fail(f"{what}: shed sets differ from np")
+            if accountant_state(ort.accountant) != accountant_state(
+                    ref.accountant):
+                fail(f"{what}: the error accountant differs from np")
+            if counts(ort) != counts(ref):
+                fail(f"{what}: per-pane admission differs from np")
+            same, _ = hold(np, got, want, lambda a: RTOL_MAIN, what,
+                           exact_counts=True)
+            s = ort.metrics.summary()
+            fixed.append({"policy": policy, **extra, "wall_s": wall,
+                          "shed_frac": s["shed_frac"],
+                          "p50_proc_ms": s["p50_proc_ms"],
+                          "p99_proc_ms": s["p99_proc_ms"], "bitwise": same,
+                          "launches": n})
+            log(f"[stream] {what}: wall {wall:.3f} s (np {wall_np:.3f}); "
+                f"{len(plans)} shed plans and the accountant's "
+                f"{len(ort.accountant._shed)} cells and reports equal to np; "
+                f"shed {s['shed_frac']:.4f}; pane proc p50 "
+                f"{s['p50_proc_ms']:.3f} ms p99 {s['p99_proc_ms']:.3f} ms; "
+                f"{same} of {len(want)} windows bitwise; launches {n}")
+    if sum(launches.values()) == 0:
+        fail("overload: no kernel was launched")
+
+    # the live controller at 2x the capacity calibrated on the card
+    rt = HamletRuntime(wl, backend="cuda")
+    truth, dt = _timed(torch, lambda: rt.run(stream, t_end))
+    capacity = len(stream) / dt
+    frag = fragmented_stream()
+    _, dt_frag = _timed(torch, lambda: HamletRuntime(wl, backend="cuda").run(
+        frag, 60))
+    cap_frag = len(frag) / dt_frag
+    offered_x = 2.0
+    tick_seconds = (len(stream) / t_end) / (offered_x * capacity)
+    slo_ms = rt.pane * tick_seconds * 1e3
+    budget = max(1, int(cap_frag * slo_ms / 1e3))
+    log(f"[stream] calibration on cuda: capacity {capacity:.1f} events/s, "
+        f"fragmented {cap_frag:.1f} events/s; offered {offered_x}x: tick "
+        f"{tick_seconds * 1e3:.4f} ms, SLO {slo_ms:.4f} ms a pane of "
+        f"{rt.pane} ticks, admission cap {budget} events a pane")
+    live = {}
+    for policy in ("benefit_weighted", "none"):
+        cfg = OverloadConfig(slo_ms=slo_ms, shed_policy=policy,
+                             tick_seconds=tick_seconds,
+                             pane_budget_events=budget, min_burst_keep=0.1)
+        ort = OverloadRuntime(wl, cfg, backend="cuda")
+        _reset(*_kernel_fns().values())
+        res, wall = _timed(torch, lambda: ort.run(stream, t_end))
+        n = _launches()
+        # the same run again under the profiler, for the device's share
+        again = OverloadRuntime(wl, cfg, backend="cuda")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall_p = _timed(torch, lambda: again.run(stream, t_end))
+        busy = busy_share(prof, wall_p)
+        for name, k in n.items():
+            launches[name] += k
+        s = ort.metrics.summary()
+        recall, n_true = detection_recall(truth, res)
+        live[policy] = dict(s, slo_ms=slo_ms, recall=recall, wall_s=wall,
+                            busy_share=busy, launches=n)
+        log(f"[stream] live controller, {policy}: {s['panes']} panes, pane "
+            f"proc p50 {s['p50_proc_ms']:.4f} ms p99 {s['p99_proc_ms']:.4f} "
+            f"ms ({s['p99_proc_ms'] / slo_ms:.3f}x SLO {slo_ms:.4f} ms), "
+            f"end-to-end p99 {s['p99_lat_ms']:.4f} ms, shed "
+            f"{s['shed_frac']:.4f}, mean shed ratio "
+            f"{s['mean_shed_ratio']:.4f}, recall {recall:.4f} over {n_true} "
+            f"windows, wall {wall:.3f} s, launches {n}; profiled again: "
+            f"wall {wall_p:.3f} s, device busy {busy:.5f} of it, pane proc "
+            f"p50 {again.metrics.summary()['p50_proc_ms']:.4f} ms")
+    # the SLO is reported, not gated (the controller follows a shared
+    # host's wall clock); shedding must still cut the tail it is there for
+    shed_p99, none_p99 = (live[p]["p99_lat_ms"]
+                          for p in ("benefit_weighted", "none"))
+    if not shed_p99 < none_p99:
+        fail(f"overload: end-to-end p99 with benefit_weighted shedding "
+             f"{shed_p99:.4f} ms is not below the unshed run's "
+             f"{none_p99:.4f} ms at {offered_x}x capacity")
+    return {"events": len(stream), "fixed": fixed, "capacity": capacity,
+            "capacity_fragmented": cap_frag, "offered_x": offered_x,
+            "live": live, "launches": launches}
+
+
+def stream_eventtime(torch, np) -> dict:
+    """``EventTimeRuntime`` on the card on fig_disorder's ridesharing row,
+    speculative and buffered, held against the in-order cuda runtime and
+    the in-order np runtime (the cuda run itself first held against np); the
+    speculative run again under the profiler for ``ops.fold_stacked``'s
+    device time; then ``HamletService(eventtime=...)`` on the same
+    stream."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core.engine import HamletRuntime
+    from repro_torch.core.service import HamletService
+    from repro_torch.eventtime import EventTimeRuntime
+    from repro_torch.kernels import ops
+    from repro_torch.launch.fig_disorder import (CHUNK, disorder_case,
+                                                 event_time_config)
+
+    wl, base, ds, t_end = disorder_case()
+    truth, wall_t = _timed(torch, lambda: HamletRuntime(
+        wl, backend="cuda").run(base, t_end))
+    t0 = time.perf_counter()
+    truth_np = HamletRuntime(wl, backend="np").run(base, t_end)
+    wall_np = time.perf_counter() - t0
+    rtol = lambda a: RTOL_SUM
+    same, finite = hold(np, truth, truth_np, rtol, "event time in-order cuda",
+                        exact_counts=True)
+    log(f"[stream] event time: fig_disorder ridesharing, {len(base)} events, "
+        f"{len(wl.queries)} queries, bounded_skew fraction 0.2, max lateness "
+        f"{ds.max_lateness()}, chunk {CHUNK}; in-order cuda run "
+        f"{wall_t:.3f} s, {len(truth)} windows, held against the in-order np "
+        f"run ({wall_np:.3f} s): {same} windows bitwise, {finite} finite "
+        f"values (COUNT exact below 2^53, rtol {RTOL_SUM})")
+    launches = {name: 0 for name in _kernel_fns()}
+
+    def held(got, what):
+        """Hold ``got`` against the in-order cuda run and the np run."""
+        same, _ = hold(np, got, truth, rtol, what, exact_counts=True)
+        same_np, _ = hold(np, got, truth_np, rtol, f"{what} (against np)",
+                          exact_counts=True)
+        return same, same_np
+
+    def drive(speculative):
+        et = EventTimeRuntime(wl, event_time_config(ds, speculative),
+                              backend="cuda")
+        storms = []
+        revise = et._revise
+
+        def counted(dirty):
+            m = et.metrics
+            n0 = m.amendments + m.noop_revisions
+            recs = revise(dirty)
+            if m.amendments + m.noop_revisions > n0:
+                storms.append(m.amendments + m.noop_revisions - n0)
+            return recs
+        et._revise = counted
+        got, wall = _timed(torch, lambda: et.run_disordered(
+            ds.base, ds.order, chunk=CHUNK, t_end=t_end))
+        return et, got, wall, storms
+
+    modes = {}
+    for speculative in (True, False):
+        _reset(*_kernel_fns().values())
+        et, got, wall, storms = drive(speculative)
+        n = _launches()
+        for name, k in n.items():
+            launches[name] += k
+        mode = "speculate" if speculative else "buffer"
+        same, same_np = held(got, f"event time {mode}")
+        m = et.metrics.summary()
+        modes[mode] = dict(m, wall_s=wall, bitwise=same,
+                           bitwise_np=same_np, storms=len(storms),
+                           max_storm=max(storms, default=0),
+                           window_folds=et.rt.fold_exec.window_folds,
+                           launches=n)
+        log(f"[stream] event time {mode}: wall {wall:.3f} s; against the "
+            f"in-order cuda run {same} of {len(truth)} windows bitwise, "
+            f"against np {same_np} (COUNT exact below 2^53, rtol "
+            f"{RTOL_SUM}); "
+            f"amendments {m['amendments']}, noop revisions "
+            f"{m['noop_revisions']}, revision storms {len(storms)} (windows "
+            f"re-folded: max {max(storms, default=0)}, total "
+            f"{sum(storms)}), emission lag p50 {m['p50_emit_lag']} p99 "
+            f"{m['p99_emit_lag']} ticks, fold_exec.window_folds "
+            f"{et.rt.fold_exec.window_folds}; launches {n}")
+    if modes["speculate"]["amendments"] == 0:
+        fail("event time: the speculative run never revised a window")
+
+    # fold_stacked under the profiler, in the speculative run's storms
+    orig = ops.fold_stacked
+    calls = []
+
+    def traced(u0, Ms, **kw):
+        with record_function("fold_stacked"):
+            out = orig(u0, Ms, **kw)
+        calls.append(tuple(np.shape(Ms)))
+        return out
+    ops.fold_stacked = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            et, got, wall_p, _ = drive(True)
+    finally:
+        ops.fold_stacked = orig
+    held(got, "event time speculate (profiled)")
+    split = device_split(prof, "fold_stacked")
+    matmuls = sum(s[1] for s in calls)
+    fold = dict(split, calls=len(calls), matmul_launches=matmuls,
+                windows=sum(s[0] for s in calls), wall_s=wall_p)
+    log(f"[stream] ops.fold_stacked in the speculative run (profiled, wall "
+        f"{wall_p:.3f} s): {len(calls)} calls over {fold['windows']} window "
+        f"chains, {matmuls} batched matmul launches; device time in its "
+        f"ranges {split['device_ms']:.4f} ms ({split['kernel_ms']:.4f} ms "
+        f"in {split['kernels']} kernels, {split['copy_ms']:.4f} ms in "
+        f"{split['copies']} copies), host time in its ranges "
+        f"{split['host_ms']:.3f} ms")
+
+    # the service's event-time mode on the same disordered stream
+    svc = HamletService(wl.schema, wl.queries, backend="cuda",
+                        eventtime=event_time_config(ds, True))
+    _reset(*_kernel_fns().values())
+    t0 = time.perf_counter()
+    for ch in ds.chunks(CHUNK):
+        svc.feed(ch)
+    svc.close()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    n = _launches()
+    for name, k in n.items():
+        launches[name] += k
+    same, same_np = held(svc.results, "service event time")
+    if svc.expired_late:
+        fail(f"service event time: {svc.expired_late} events expired")
+    log(f"[stream] service event time: wall {wall_s:.3f} s, "
+        f"{len(svc.revisions)} revision records; {same} of {len(truth)} "
+        f"windows bitwise against the in-order cuda run, {same_np} against "
+        f"np; launches {n}")
+    return {"events": len(base), "in_order_bitwise_np": same, "modes": modes,
+            "fold_stacked": fold,
+            "service": {"wall_s": wall_s, "revisions": len(svc.revisions),
+                        "bitwise": same, "bitwise_np": same_np},
+            "launches": launches}
+
+
+def phase_stream(torch, np, main_res) -> dict:
+    """The streaming layers on the card: the service, the overload runtime
+    (fixed shedding against np, then the live controller's per-pane
+    latency) and the event-time runtime.  Each part counts its kernel
+    launches from zero; the phase fails unless both kernels launched."""
+    out = {"service": stream_service(torch, np, main_res),
+           "overload": stream_overload(torch, np),
+           "eventtime": stream_eventtime(torch, np)}
+    total = {name: sum(out[p]["launches"][name] for p in out)
+             for name in _kernel_fns()}
+    for part, r in out.items():
+        if sum(r["launches"].values()) == 0:
+            fail(f"stream {part}: no kernel was launched")
+    for name, k in total.items():
+        if k == 0:
+            fail(f"stream phase never launched {name}")
+    log(f"[stream] kernel launches over the phase: {total}")
+    out["launches"] = total
+    return out
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -1000,6 +1603,7 @@ def main() -> None:
     phase_cli(torch, np)
     base_res = phase_baselines(torch, np)
     obs_res = phase_obs(torch, np)
+    stream_res = phase_stream(torch, np, main_res)
     check = next(c for c in kernels["hamlet_propagate"]["checks"]
                  if c["case"] == "solved rows in global memory")
     log(f"[baselines] the masked kernel's global-memory variant: (1, "
@@ -1022,8 +1626,9 @@ def main() -> None:
     print(json.dumps({"kernels": list(kernels.values()),
                       "card": card, "config": MAIN_CONFIG,
                       "baselines": {k: base_res[k] for k in
-                                    ("finite_cut", "paper")},
-                      "obs": obs_res}), flush=True)
+                                    ("finite_cut", "large_finite", "paper")},
+                      "obs": obs_res, "stream": stream_res},
+                     default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

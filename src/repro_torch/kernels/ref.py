@@ -43,6 +43,7 @@ __all__ = [
     "torch_prefix_propagate_fast_batched",
     "prefix_propagate_dense_torch",
     "prefix_propagate_dense_torch_batched",
+    "exact_oracle",
 ]
 
 
@@ -60,6 +61,18 @@ def numpy_prefix_propagate(base: np.ndarray, mask: np.ndarray) -> np.ndarray:
         if i:
             c[i] = c[i] + mask[i, :i].astype(base.dtype) @ c[:i]
     return c
+
+
+def exact_oracle(doubling: float, row_loop: float) -> tuple[float, str]:
+    """What the ``"cuda"`` path is held against for one window value: the
+    numpy path's (the doubling, :func:`numpy_prefix_propagate_fast`, for
+    b >= 25), except where the doubling is non-finite and the row loop
+    (:func:`numpy_prefix_propagate`, the exact path and the masked
+    kernel's plain version) is finite: there the row loop.  Returns the
+    value and which oracle gave it."""
+    if not math.isfinite(doubling) and math.isfinite(row_loop):
+        return row_loop, "row loop"
+    return doubling, "doubling"
 
 
 def numpy_prefix_propagate_fast(base: np.ndarray, mask: np.ndarray) -> np.ndarray:

@@ -20,9 +20,19 @@ out.jsonl out.json`` and load in Perfetto), and the run report gains the
 per-phase span-sum vs ``RunStats`` check plus the sharing-decision audit
 summary; ``--trace-sample N`` traces every Nth pane's track.
 
-The other modes of the JAX package's launcher — ``--overload``,
-``--shards``, ``--serve`` and ``--listen``/``--connect`` — are not ported
-yet and exit with an error.
+``--overload`` switches to the bounded-latency runtime
+(:class:`repro_torch.overload.OverloadRuntime`): an overload scenario
+stream (rate ramp + flash crowd) is offered at ``--offered-x`` times the
+capacity calibrated on the same backend and processed through ingress
+backpressure, per-pane admission control, the ``--shed-policy`` shedding
+policy and the PID latency controller; ``--recall`` adds the detection
+recall against the unshed run on the same backend:
+
+    PYTHONPATH=src python -m repro_torch.launch.hamlet_service --overload \
+        --offered-x 2 --shed-policy benefit_weighted --recall
+
+The other modes of the JAX package's launcher — ``--shards``, ``--serve``
+and ``--listen``/``--connect`` — are not ported yet and exit with an error.
 """
 
 from __future__ import annotations
@@ -35,13 +45,15 @@ from ..core.optimizer import AlwaysShare, DynamicPolicy, FlopPolicy, NeverShare
 from ..core.pattern import EventType, Kleene, Not, Seq
 from ..core.query import Pred, Query, Workload, agg_avg, agg_sum, count_star
 from ..obs import PHASES, Observability
-from ..streams.generator import RIDESHARING_SCHEMA, ridesharing_stream
+from ..streams.generator import (RIDESHARING_SCHEMA, OverloadStreamConfig,
+                                 overload_stream, ridesharing_stream)
+from .fig_overload import detection_recall
 
 POLICIES = {"dynamic": DynamicPolicy, "always": AlwaysShare,
             "never": NeverShare, "flop": FlopPolicy}
 
 # modes of the JAX package's launcher that this port does not have yet
-UNPORTED = ("overload", "serve", "shards", "listen", "connect")
+UNPORTED = ("serve", "shards", "listen", "connect")
 
 
 def ridesharing_workload(n_queries: int = 3) -> Workload:
@@ -86,9 +98,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="torch device for the cuda/torch backends "
                          "(default cuda:0)")
-    for flag in ("overload", "serve"):
-        ap.add_argument(f"--{flag}", action="store_true",
-                        help="not yet ported")
+    ap.add_argument("--overload", action="store_true",
+                    help="bounded-latency runtime on an overload scenario")
+    ap.add_argument("--offered-x", type=float, default=2.0,
+                    help="offered load as a multiple of calibrated capacity")
+    ap.add_argument("--slo-ms", type=float, default=None,
+                    help="pane latency SLO (default: the real-time pane "
+                         "budget)")
+    ap.add_argument("--shed-policy", default="benefit_weighted",
+                    choices=["none", "drop_tail", "random",
+                             "benefit_weighted"])
+    ap.add_argument("--recall", action="store_true",
+                    help="also compute recall vs the unshedded run")
+    ap.add_argument("--serve", action="store_true", help="not yet ported")
     ap.add_argument("--shards", type=int, default=0, help="not yet ported")
     for flag in ("listen", "connect"):
         ap.add_argument(f"--{flag}", default=None, help="not yet ported")
@@ -145,12 +167,79 @@ def run_default(args: argparse.Namespace):
     return res, rt, batch, time.time() - t0
 
 
+def run_overload(args) -> dict:
+    """The ``--overload`` mode: calibrate the capacity on the run's own
+    backend, offer the scenario at ``--offered-x`` of it and report the
+    per-pane latency, shedding and error certificates (and, with
+    ``--recall``, the recall against the unshed run on the same backend).
+    Returns the metrics summary with ``capacity``, ``slo_ms`` and
+    ``recall`` added."""
+    from ..overload import OverloadConfig, OverloadRuntime
+
+    wl = ridesharing_workload(args.queries)
+    t_end = args.minutes * 60
+    stream = overload_stream(OverloadStreamConfig(
+        schema=RIDESHARING_SCHEMA,
+        base_events_per_minute=args.events_per_minute,
+        minutes=args.minutes, ramp_to=1.5,
+        flash_crowds=((t_end // 3, 20, 3.0),),
+        n_groups=args.groups, type_weights=(1, 1, 6, 1, 1, 1)))
+    on = dict(backend=args.backend, device=args.device)
+
+    # calibrate capacity (events/s the unshedded engine sustains on this
+    # backend; its runs end on the host fetch) on a prefix
+    sample = stream.time_slice(0, min(60, t_end))
+    cal = HamletRuntime(wl, policy=POLICIES[args.policy](), **on)
+    t0 = time.perf_counter()
+    cal.run(sample, t_end=min(60, t_end))
+    capacity = len(sample) / max(time.perf_counter() - t0, 1e-9)
+
+    pane = cal.pane
+    tick_seconds = (len(stream) / t_end) / (args.offered_x * capacity)
+    slo_ms = args.slo_ms or pane * tick_seconds * 1e3  # default: real time
+    cfg = OverloadConfig(
+        slo_ms=slo_ms, shed_policy=args.shed_policy,
+        tick_seconds=tick_seconds,
+        pane_budget_events=int(capacity * pane * tick_seconds))
+    obs = _make_obs(args)
+    ort = OverloadRuntime(wl, cfg, policy=POLICIES[args.policy](), obs=obs,
+                          **on)
+    res = ort.run(stream, t_end)
+    s = ort.metrics.summary()
+    if obs is not None:
+        _obs_report(obs, args.trace, ort.stats)
+    print(f"offered_x={args.offered_x} capacity={capacity:.0f} ev/s "
+          f"slo={slo_ms:.2f} ms policy={args.shed_policy} "
+          f"backend={args.backend} device={ort.rt.device}")
+    print(f"offered={s['offered']} admitted={s['admitted']} "
+          f"shed={s['shed']} ({100 * s['shed_frac']:.1f}%) "
+          f"ingress_dropped={ort.queue.dropped} rejected={ort.queue.rejected}")
+    print(f"pane proc p50={s['p50_proc_ms']:.2f} ms "
+          f"p99={s['p99_proc_ms']:.2f} ms "
+          f"({s['p99_proc_ms'] / slo_ms:.2f}x slo) "
+          f"| e2e p99={s['p99_lat_ms']:.2f} ms "
+          f"mean_shed_ratio={s['mean_shed_ratio']:.2f}")
+    for name, rep in sorted(ort.accountant.report().items()):
+        print(f"  {name}: shed kleene={rep.shed_kleene} "
+              f"critical={rep.shed_critical} negative={rep.shed_negative} "
+              f"subset_guarantee={rep.subset_guarantee}")
+    recall = None
+    if args.recall:
+        truth = HamletRuntime(wl, policy=POLICIES[args.policy](), **on).run(
+            stream, t_end)
+        recall, n = detection_recall(truth, res)
+        print(f"detection recall={recall:.3f} over {n} windows")
+    return dict(s, capacity=capacity, slo_ms=slo_ms, recall=recall)
+
+
 def main(argv=None):
     args = parse_args(argv)
     asked = [f for f in UNPORTED if getattr(args, f)]
     if asked:
         raise SystemExit(f"--{asked[0]}: not yet ported to the PyTorch/CUDA "
                          "package (use repro.launch.hamlet_service)")
+    if args.overload:
+        return run_overload(args)
     res, rt, batch, dt = run_default(args)
     s = rt.stats
     if rt.obs is not None:

@@ -14,9 +14,16 @@ Inputs are made from seeds with numpy and carried across with
   for the doubling oracle, against the reference's ``backend="pallas"``
   (interpret mode) within rtol 1e-12;
 * MCEP's trend-explosion ``RuntimeError``; GRETA's defaults (the card,
-  raising without one) and its values, Python floats on every backend.
+  raising without one) and its values, Python floats on every backend;
+* fig9's windows whose counts are large but finite (8,000 ev/min): the
+  reference's numpy doubling gives NaN there, its row loop the finite
+  count; the port's ``"np"`` keeps the doubling's NaN and the masked
+  kernel's plain version (the ``"cuda"`` path's) is held against the row
+  loop (``repro_torch.kernels.ref.exact_oracle``), for COUNT and for
+  MIN/MAX.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -36,6 +43,7 @@ from repro.core.query import (Pred, Query, Workload, agg_avg, agg_max,
 from repro_torch import interop
 from repro_torch.core.baselines import brute, greta, mcep, sharon
 from repro_torch.core.engine import vals_equal
+from repro_torch.kernels.ref import exact_oracle
 
 A, B, C, X = map(EventType, "ABCX")
 SCHEMA = StreamSchema(types=("A", "B", "C", "X"), attrs=("v", "w"))
@@ -323,3 +331,132 @@ def test_saturated_greta_is_nan_where_hamlet_is_inf():
         torch.as_tensor(adj[None]))[0, :, 0].numpy()
     assert np.isnan(c).any() and np.isposinf(c).any()
     assert math.isnan(float((c * end_valid).sum()))
+
+
+# ------------------- fig9's large but finite counts: the exact-path rule
+
+
+@functools.lru_cache(maxsize=None)
+def _fig9_8000_windows(qi):
+    """Window 0 of each group of fig9's case at 8,000 ev/min for query
+    ``qi``: the reference's ``(ev, adj, start, end_valid, sub)`` and the
+    row loop's count vector."""
+    from repro.core.baselines.greta import window_adjacency
+    from repro.core.engine import ComponentContext
+    from repro.kernels.ref import numpy_prefix_propagate
+
+    wl, stream = _ref_fig9_case(8000, 1)
+    run_ids = ComponentContext(wl.schema, list(wl.atomic)).relevant_type_ids
+    out = {}
+    for g, gb in sorted(stream.partition_by_group().items()):
+        ev = gb.time_slice(0, 60)
+        adj, start, end_valid, _, sub = window_adjacency(
+            wl.schema, wl.atomic[qi], ev, run_ids, pane=30)
+        row = numpy_prefix_propagate(start[:, None], adj)[:, 0]
+        out[g] = (ev, adj, start, end_valid, sub, row)
+    return wl, stream, run_ids, out
+
+
+def _plain_counts(adj, start):
+    """The masked kernel's plain version (what the wrapper runs on a CPU
+    tensor) on one window."""
+    from repro_torch.kernels.hamlet_propagate import \
+        masked_prefix_propagate_cuda
+
+    return masked_prefix_propagate_cuda(
+        torch.as_tensor(start[None, :, None]),
+        torch.as_tensor(adj[None]))[0, :, 0].numpy()
+
+
+def test_large_finite_greta_counts_follow_the_row_loop():
+    """fig9 at 8,000 ev/min, window 0 of groups 0, 2 and 3, query q0: the
+    true COUNT is finite (~1e285-1e301).  The reference's
+    ``window_eval_greta(backend="np")`` is NaN (its doubling's matrix
+    powers overflow into 0 * inf); its row loop is finite and equals the
+    reference ``HamletRuntime``'s COUNT to rtol 1e-12; the port's np
+    backend keeps the reference's NaN.  The masked kernel's plain version
+    equals the row loop row for row: bitwise on every row below 2^53
+    (integer-valued, exact in any order), within rtol 1e-12 above, where
+    the two add each row's products in another order (torch's batched
+    matmul against numpy's vecmat); non-finite rows at the same
+    positions."""
+    from repro.core.engine import HamletRuntime as RefRuntime
+
+    wl, stream, run_ids, wins = _fig9_8000_windows(0)
+    ham = RefRuntime(wl).run(stream, 60)
+    pwl, q, pq = port_wl(wl), wl.atomic[0], port_wl(wl).atomic[0]
+    held = []
+    for g in (0, 2, 3):
+        ev, adj, start, end_valid, sub, row = wins[g]
+        doubling = ref_window_eval_greta(wl.schema, q, ev, run_ids,
+                                         backend="np", pane=30)["COUNT(*)"]
+        row_count = float((row * end_valid).sum())
+        assert math.isnan(doubling) and math.isfinite(row_count), g
+        assert math.isclose(row_count, ham[("q0", g, 0)]["COUNT(*)"],
+                            rel_tol=1e-12), g
+        want, kind = exact_oracle(doubling, row_count)
+        assert kind == "row loop" and want == row_count
+        got_np = greta.window_eval_greta(pwl.schema, pq, port_stream(ev),
+                                         run_ids, backend="np",
+                                         pane=30)["COUNT(*)"]
+        assert math.isnan(got_np), g
+        c = _plain_counts(adj, start)
+        for f in (np.isnan, np.isposinf, np.isneginf):
+            assert np.array_equal(f(c), f(row)), g
+        fin = np.isfinite(row)
+        small = fin & (np.abs(row) < 2.0 ** 53)
+        assert small.sum() > 100 and np.array_equal(c[small], row[small])
+        big = fin & ~small
+        assert big.any()
+        assert np.allclose(c[big], row[big], rtol=1e-12, atol=0.0), g
+        got = float((c * end_valid).sum())
+        assert math.isclose(got, want, rel_tol=1e-12), (g, got, want)
+        held.append(g)
+    assert held == [0, 2, 3]
+    # the other window of q0 is saturated in the row loop too: the rule
+    # keeps the reference's value there
+    *_, end_valid, _, row = wins[1]
+    assert exact_oracle(math.nan, float((row * end_valid).sum()))[1] == \
+        "doubling"
+
+
+def test_large_finite_minmax_follows_the_row_loop():
+    """``chip_smoke.py::minmax_variant`` (``MIN(Travel.speed)`` on q0,
+    ``MAX(Travel.duration)`` on q1) on the same stream: all 8 windows are
+    NaN in the reference ``HamletRuntime`` (its MIN/MAX reads
+    ``counts > 0`` off the doubling's NaN rows; the port's np and torch
+    backends run the same doubling for b >= 25); the reference's
+    ``_minmax_propagate`` fed with its row loop's counts gives finite
+    values (group 0: MIN 0.00185, MAX 9.9936), and the port's, fed with
+    the masked kernel's plain counts, the same values bitwise."""
+    import dataclasses
+
+    from repro.core.baselines.greta import \
+        _minmax_propagate as ref_minmax_propagate
+    from repro.core.engine import HamletRuntime as RefRuntime
+
+    wl0, stream, run_ids, _ = _fig9_8000_windows(0)
+    extra = {0: agg_min("Travel", "speed"), 1: agg_max("Travel", "duration")}
+    wl = Workload(wl0.schema, [
+        dataclasses.replace(q, aggs=q.aggs + (extra[i],)) if i in extra
+        else q for i, q in enumerate(wl0.queries)])
+    ref = RefRuntime(wl).run(stream, 60)
+    pwl = port_wl(wl)
+    values = {}
+    for qi, agg in extra.items():
+        wins = _fig9_8000_windows(qi)[3]
+        for g, (ev, adj, start, end_valid, sub, row) in wins.items():
+            key, a = (f"q{qi}", g, 0), repr(agg)
+            assert math.isnan(ref[key][a]), (key, a)
+            want = ref_minmax_propagate(wl.schema, agg, sub, adj, row, start,
+                                        end_valid)
+            assert math.isfinite(want), (key, a)
+            assert exact_oracle(ref[key][a], want) == (want, "row loop")
+            got = greta._minmax_propagate(
+                pwl.schema, pwl.atomic[qi].aggs[-1], port_stream(sub), adj,
+                _plain_counts(adj, start), start, end_valid)
+            assert got == want, (key, a, got, want)
+            values[key] = got
+    assert len(values) == 8
+    assert round(values[("q0", 0, 0)], 5) == 0.00185
+    assert round(values[("q1", 0, 0)], 4) == 9.9936

@@ -6,9 +6,9 @@
 * without a CUDA device the default entry points raise instead of
   running on the CPU, and ``chip_smoke.py`` exits non-zero, printing no
   result — in the checkout and alone in a directory;
-* the service CLI's default mode runs on a backend the caller asks for,
-  ``--trace`` writes a Chrome-trace JSONL beside its report, and the modes
-  that are not ported yet exit with an error.
+* the service CLI's default and ``--overload`` modes run on a backend the
+  caller asks for, ``--trace`` writes a Chrome-trace JSONL beside its
+  report, and the modes that are not ported yet exit with an error.
 """
 
 import json
@@ -55,13 +55,83 @@ assert not bad, bad
 assert "repro_torch.core.engine" in names and "repro_torch.interop" in names
 for n in ("repro_torch.core.baselines.greta", "repro_torch.core.minmax",
           "repro_torch.obs.facade", "repro_torch.obs.audit",
-          "repro_torch.streams.partition", "repro_torch.launch.fig9"):
+          "repro_torch.streams.partition", "repro_torch.launch.fig9",
+          "repro_torch.core.service", "repro_torch.overload.runtime",
+          "repro_torch.eventtime.revision"):
     assert n in names, n
+for pkg, mods in (("overload", ("config", "controller", "ingress", "shedding",
+                                "accountant", "runtime")),
+                  ("eventtime", ("config", "watermark", "reorder",
+                                 "frontier", "revision"))):
+    for m in mods:
+        assert f"repro_torch.{pkg}.{m}" in names, (pkg, m)
 """
     r = _run(["-c", code])
     assert r.returncode == 0, r.stderr
     n = int(r.stdout.split()[0])
-    assert n >= 35, r.stdout
+    assert n >= 49, r.stdout
+
+
+def test_streaming_layers_import_without_jax_or_repro():
+    """The service, overload and event-time layers import in an interpreter
+    where ``jax`` and ``repro`` cannot be imported at all."""
+    code = """
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "repro", "benchmarks"):
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, Block())
+import repro_torch.core.service, repro_torch.overload, repro_torch.eventtime
+from repro_torch.core.service import HamletService
+from repro_torch.overload import OverloadRuntime
+from repro_torch.eventtime import EventTimeRuntime
+print("ok")
+"""
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("entry", ["HamletService", "OverloadRuntime",
+                                   "EventTimeRuntime"])
+def test_streaming_entry_points_default_to_the_card(entry):
+    """Each new entry point runs the hand-written kernels on ``cuda:0``
+    unless told otherwise: without a GPU it raises instead of falling back
+    to the CPU, and it runs on the host only when asked."""
+    _no_cuda()
+    import inspect
+
+    from repro_torch.core.pattern import EventType, Kleene, Seq
+    from repro_torch.core.query import Query, Workload
+    from repro_torch.core.service import HamletService
+    from repro_torch.eventtime import EventTimeConfig, EventTimeRuntime
+    from repro_torch.overload import OverloadConfig, OverloadRuntime
+    from repro_torch.streams.generator import RIDESHARING_SCHEMA
+
+    q = Query("q", Seq(EventType("Request"), Kleene(EventType("Travel"))))
+    wl = Workload(RIDESHARING_SCHEMA, [q])
+    cls, make = {
+        "HamletService": (HamletService, lambda **kw: HamletService(
+            RIDESHARING_SCHEMA, [q], **kw)),
+        "OverloadRuntime": (OverloadRuntime, lambda **kw: OverloadRuntime(
+            wl, OverloadConfig(), **kw)),
+        "EventTimeRuntime": (EventTimeRuntime, lambda **kw: EventTimeRuntime(
+            wl, EventTimeConfig(), **kw)),
+    }[entry]
+    assert inspect.signature(cls).parameters["backend"].default == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(backend="torch")
+    with pytest.raises(ValueError):
+        make(backend="cuda", device="cpu")
+    on_host = make(backend="torch", device="cpu")
+    rt = on_host._runtime() if entry == "HamletService" else on_host.rt
+    assert rt.device.type == "cpu" and rt.backend == "torch"
+    on_np = make(backend="np")
+    assert (on_np if entry == "HamletService" else on_np.rt).device is None
 
 
 def test_default_runtime_needs_a_gpu():
@@ -144,13 +214,35 @@ def test_cli_default_mode_on_the_host():
 def test_cli_refuses_unported_modes_and_missing_gpu():
     from repro_torch.launch import hamlet_service
 
-    for flags in (["--overload"], ["--serve"], ["--shards", "2"],
+    for flags in (["--serve"], ["--shards", "2"],
                   ["--listen", "127.0.0.1:0"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             hamlet_service.main(flags + ["--backend", "np"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             hamlet_service.main(["--minutes", "1"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            hamlet_service.main(["--overload", "--minutes", "1"])
+
+
+@pytest.mark.parametrize("backend", ["np", "torch"])
+def test_cli_overload_on_the_host(backend, capsys):
+    """``--overload`` at a tiny size: calibration, the shed run and the
+    recall all on the backend asked for; the report's lines and the
+    returned summary."""
+    from repro_torch.launch import hamlet_service
+
+    flags = ["--overload", "--backend", backend, "--minutes", "1",
+             "--events-per-minute", "200", "--groups", "2", "--recall",
+             "--shed-policy", "drop_tail", "--offered-x", "3"]
+    if backend == "torch":
+        flags += ["--device", "cpu"]
+    s = hamlet_service.main(flags)
+    out = capsys.readouterr().out
+    assert f"backend={backend}" in out and "policy=drop_tail" in out
+    assert "pane proc p50=" in out and "detection recall=" in out
+    assert s["panes"] == 12 and s["offered"] == s["admitted"] + s["shed"]
+    assert 0.0 <= s["recall"] <= 1.0 and s["capacity"] > 0
 
 
 def test_cli_trace_on_the_host(tmp_path):
