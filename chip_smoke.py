@@ -72,6 +72,35 @@ Phases, in order; a failure in any of them exits non-zero:
               device time in the revision storms from the profiler, and the
               service's event-time mode on the same stream.
 
+9. shards   — the sharded service (``repro_torch.shardsvc``) on the card:
+              first the pane-batch sharding hook (the main configuration's
+              finite cut with ``shard_slices=pane_bucket_shards(nb, 3)``
+              bitwise equal to the cut without it, with more launches);
+              then fig_shard_scale's configuration in its quick mode
+              (``SHARDS_QUICK``; ``repro_torch.launch.fig_shard_scale``: one
+              replica of 4 tenants a shard, 4 replicas pinned on 4 shards)
+              held against the np 1-shard run (COUNT exact below 2^53,
+              rtol 1e-12 above, bitwise windows printed): the cuda 1-shard
+              run, then the 4-shard serial, thread and process drives,
+              each with wall, events/s, router and per-shard busy time,
+              per-shard p99 ``proc_ms`` and the host's CPU count; the
+              thread drive's shard executor launches must add up to the
+              kernels' counters, and each worker process must report
+              launches and no module of jax or of the JAX package; one
+              rebalance (serial); the predicate variant in process mode
+              (the masked kernel in every worker process); a flash crowd
+              on one shard (its isolation printed, not gated);
+10. serve   — the serving tier (``repro_torch.serve``) on fig_shard_scale's
+              one-replica stream: 32 trickle sessions with an inline pump
+              against ``OverloadRuntime.run`` on the merged stream (itself
+              held against np), events/s of both; the same sessions paced
+              on threads with the background pump (per-session delivery
+              latency p50/p99 from every delivery); the sharded adapter
+              with 2 shards on the thread drive (each shard launching);
+              and a ``ServingServer`` with 8 ``ServingClient``s over
+              loopback, every END frame held against the in-process run,
+              no thread and no fd left after ``stop()``.
+
 Each path's kernel launches are counted from zero just before it runs; a
 path that should launch a kernel and did not fails the run.
 
@@ -85,6 +114,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1169,7 +1199,9 @@ def _kernel_fns():
 
 
 def _launches() -> dict:
-    return {name: fn.launches for name, fn in _kernel_fns().items()}
+    from repro_torch.kernels.ops import kernel_launches
+
+    return kernel_launches()
 
 
 def device_split(prof, name: str) -> dict:
@@ -1580,6 +1612,462 @@ def phase_stream(torch, np, main_res) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# sharded service and serving tier
+# --------------------------------------------------------------------------
+
+RTOL_SHARD = 1e-12      # non-COUNT values, N-shard / serving vs 1-shard
+SHARDS = 4              # the shards phase's shard count (one replica each)
+# the shards phase runs fig_shard_scale's quick mode (2 minutes, 27,475
+# events a replica): in full mode (6 minutes, 82,603 a replica, 330,412 in
+# all) the phase took about 95-120 s on an H100 host, past its ~60 s
+# budget (PERF.md, section 6); every check is the same in both modes
+SHARDS_QUICK = True
+
+
+def hold_rule(np, got: dict, want: dict, what: str) -> int:
+    """The sharded service's and serving tier's rule against a run whose
+    flushes fuse other panes: equal keys and non-finite pattern, COUNT
+    exact below 2^53, every other value within ``RTOL_SHARD``.  Returns
+    the number of bitwise-equal windows (printed beside)."""
+    same, _ = hold(np, got, want, lambda a: RTOL_SHARD, what,
+                   exact_counts=True)
+    return same
+
+
+def _drive_shards(torch, svc, stream) -> dict:
+    """Feed ``stream`` pane by pane into a sharded service, close it and
+    read its results and timings (device synced)."""
+    t_hi = int(stream.time.max()) + 1
+    t0 = time.perf_counter()
+    for c0 in range(0, t_hi, svc.pane):
+        svc.ingest(stream.time_slice(c0, c0 + svc.pane))
+    svc.close()
+    res = svc.results()
+    if svc.device is not None:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    col = svc.collect()
+    return {"results": res, "wall_s": wall,
+            "events_per_s": len(stream) / wall,
+            "router_busy_s": svc.router_busy_s,
+            "shard_busy_s": [s["busy_s"] for s in col["shards"]],
+            "p99_proc_ms": [s["overload"]["p99_proc_ms"]
+                            for s in col["shards"]],
+            "executor_launches": [s["executor_launches"]
+                                  for s in col["shards"]],
+            "kernel_launches": [s["kernel_launches"] for s in col["shards"]],
+            "foreign_modules": [s["foreign_modules"] for s in col["shards"]],
+            "drive_mode": col["router"]["drive_mode"]}
+
+
+def _shard_line(name: str, r: dict, n_events: int, same: int,
+                n_windows: int) -> None:
+    log(f"[shards] {name}: wall {r['wall_s']:.3f} s, "
+        f"{r['events_per_s']:.1f} events/s ({n_events} events), router busy "
+        f"{r['router_busy_s']:.3f} s, shard busy "
+        f"{[round(b, 3) for b in r['shard_busy_s']]} s, p99 proc_ms "
+        f"{[round(p, 3) for p in r['p99_proc_ms']]}, {same} of {n_windows} "
+        f"windows bitwise against np (COUNT exact below 2^53, rtol "
+        f"{RTOL_SHARD} above), cpus {os.cpu_count()}")
+
+
+def phase_shards(torch, np) -> dict:
+    """The sharded service on the card: fig_shard_scale's configuration
+    replicated onto ``SHARDS`` shards (one replica each, pinned), held
+    against the np 1-shard run; the 1-shard cuda run, then the serial,
+    thread and process drives; a rebalance; the predicate variant in
+    process mode (the masked kernel in the worker processes); the flash
+    crowd's isolation (printed); and the pane-batch sharding hook on the
+    main configuration's finite cut."""
+    from repro_torch.core.engine import HamletRuntime, vals_equal
+    from repro_torch.distributed.sharding import pane_bucket_shards
+    from repro_torch.launch import fig_shard_scale as F
+
+    out = {"cpus": os.cpu_count()}
+    fns = _kernel_fns()
+
+    # the sharding hook: bitwise, with more launches
+    wl_c, stream_c, policy = main_config(FINITE_CUT)
+    runs = {}
+    for split in (None, 3):
+        _reset(*fns.values())
+        rt = HamletRuntime(
+            wl_c, policy=policy(), backend="cuda", micro_batch=16,
+            shard_slices=None if split is None
+            else (lambda nb: pane_bucket_shards(nb, split)))
+        runs[split] = (rt.run(stream_c), _launches(), rt.executor.launches)
+    (whole, l_whole, e_whole), (cut, l_cut, e_cut) = runs[None], runs[3]
+    if whole.keys() != cut.keys() or any(
+            not vals_equal(cut[k], whole[k]) for k in whole):
+        fail("shard_slices: the split run is not bitwise the whole run")
+    if not sum(l_cut.values()) > sum(l_whole.values()):
+        fail(f"shard_slices: no more launches split ({l_cut}) than whole "
+             f"({l_whole})")
+    log(f"[shards] shard_slices=pane_bucket_shards(nb, 3) on the "
+        f"{FINITE_CUT} ev/min cut: {len(cut)} windows bitwise equal to the "
+        f"unsplit run; kernel launches {l_cut} against {l_whole} (executor "
+        f"{e_cut} against {e_whole})")
+    out["shard_slices"] = {"launches": l_cut, "unsplit_launches": l_whole}
+
+    wl = F.workload()
+    base = F.base_stream(SHARDS_QUICK)
+    stream = F.replicated(base, SHARDS)
+    log(f"[shards] fig_shard_scale "
+        f"{'quick' if SHARDS_QUICK else 'full'} mode: {len(base)} events a "
+        f"replica, {SHARDS} replicas ({len(stream)} events), "
+        f"{len(wl.queries)} queries, pane 5, K={F.MICRO_BATCH}"
+        + ("; cut from the full mode's 6 minutes a replica to 2, to keep "
+           "the phase near 60 s" if SHARDS_QUICK else ""))
+    want_run = _drive_shards(torch, F.service(wl, 1, backend="np"), stream)
+    want = want_run["results"]
+    log(f"[shards] np 1-shard: wall {want_run['wall_s']:.3f} s, "
+        f"{want_run['events_per_s']:.1f} events/s, {len(want)} windows")
+    out["np_1"] = {k: v for k, v in want_run.items() if k != "results"}
+
+    for name, n, parallel in (("cuda 1-shard", 1, False),
+                              (f"cuda {SHARDS}-shard serial", SHARDS, False),
+                              (f"cuda {SHARDS}-shard thread", SHARDS, True),
+                              (f"cuda {SHARDS}-shard process", SHARDS,
+                               "process")):
+        svc = F.service(wl, n, backend="cuda", parallel=parallel)
+        _reset(*fns.values())
+        r = _drive_shards(torch, svc, stream)
+        launches = _launches()
+        same = hold_rule(np, r["results"], want, name)
+        _shard_line(name, r, len(stream), same, len(want))
+        if parallel == "process":
+            for s, (k, mods) in enumerate(zip(r["kernel_launches"],
+                                              r["foreign_modules"])):
+                if sum(k.values()) == 0:
+                    fail(f"{name}: shard process {s} launched no kernel")
+                if mods:
+                    fail(f"{name}: shard process {s} imported {mods[:5]}")
+            launches = {kn: sum(k[kn] for k in r["kernel_launches"])
+                        for kn in fns}
+            log(f"[shards] {name}: each worker process's launches "
+                f"{r['kernel_launches']}, no jax or JAX-package module in "
+                "any of them")
+        elif sum(r["executor_launches"]) != sum(launches.values()):
+            fail(f"{name}: the shards' executors launched "
+                 f"{r['executor_launches']} (sum "
+                 f"{sum(r['executor_launches'])}), the kernels counted "
+                 f"{launches}")
+        else:
+            log(f"[shards] {name}: the shards' executor launches "
+                f"{r['executor_launches']} add up to the kernels' counters "
+                f"{launches}")
+        if sum(launches.values()) == 0:
+            fail(f"{name}: no kernel was launched")
+        out[name] = dict({k: v for k, v in r.items() if k != "results"},
+                         launches=launches, bitwise=same,
+                         windows=len(want))
+
+    # one rebalance (serial): exact against the same run without it
+    svc = F.service(wl, SHARDS, backend="cuda")
+    t_hi = int(stream.time.max()) + 1
+    boundary = None
+    t0 = time.perf_counter()
+    for c0 in range(0, t_hi, svc.pane):
+        svc.ingest(stream.time_slice(c0, c0 + svc.pane))
+        if boundary is None and c0 >= t_hi // 2:
+            boundary = svc.plan_rebalance(0, 1)
+    svc.close()
+    moved = svc.results()
+    torch.cuda.synchronize()
+    serial = out[f"cuda {SHARDS}-shard serial"]
+    if svc.placement.overrides.get(0) != 1 or svc._moves:
+        fail("rebalance: the move of group 0 never committed")
+    same = hold_rule(np, moved, want, "rebalance against np")
+    log(f"[shards] rebalance of group 0 from shard 0 to 1 at tick "
+        f"{boundary} (serial, {time.perf_counter() - t0:.3f} s): {same} of "
+        f"{len(want)} windows bitwise against np (the run without it: "
+        f"{serial['bitwise']})")
+    out["rebalance"] = {"boundary": boundary, "bitwise": same}
+
+    # the predicate variant: the masked kernel in the worker processes
+    wl_p = F.workload(pred_attr="speed")
+    want_p = _drive_shards(torch, F.service(wl_p, 1, backend="np"),
+                           stream)["results"]
+    r = _drive_shards(torch, F.service(wl_p, SHARDS, backend="cuda",
+                                       parallel="process"), stream)
+    same = hold_rule(np, r["results"], want_p, "predicate variant")
+    for s, k in enumerate(r["kernel_launches"]):
+        if k["hamlet_propagate"] == 0 or k["hamlet_dense"] == 0:
+            fail(f"predicate variant: shard process {s} launched {k}")
+    if any(r["foreign_modules"]):
+        fail(f"predicate variant: a worker imported {r['foreign_modules']}")
+    _shard_line(f"predicate variant, cuda {SHARDS}-shard process", r,
+                len(stream), same, len(want_p))
+    log(f"[shards] predicate variant: each worker process's launches "
+        f"{r['kernel_launches']}")
+    out["predicate_process"] = dict(
+        {k: v for k, v in r.items() if k != "results"}, bitwise=same,
+        windows=len(want_p), launches={
+            kn: sum(k[kn] for k in r["kernel_launches"]) for kn in fns})
+
+    # flash isolation (printed, not gated)
+    flash = F.replicated(base, SHARDS,
+                         flash_base=F.base_stream(SHARDS_QUICK, flash=True))
+    r = _drive_shards(torch, F.service(wl, SHARDS, backend="cuda"), flash)
+    quiet = serial["p99_proc_ms"]
+    ratio = [r["p99_proc_ms"][s] / quiet[s] if quiet[s] else float("nan")
+             for s in range(SHARDS)]
+    log(f"[shards] flash crowd on shard 0 ({len(flash)} events): p99 "
+        f"proc_ms {[round(p, 3) for p in r['p99_proc_ms']]} against "
+        f"{[round(p, 3) for p in quiet]} without it (x"
+        f"{[round(x, 3) for x in ratio]}; SLO {F.SLO_MS} ms; not gated)")
+    out["flash"] = {"p99_proc_ms": r["p99_proc_ms"], "ratio": ratio}
+    total = {kn: sum(out[k]["launches"][kn] for k in out
+                     if isinstance(out[k], dict) and "launches" in out[k])
+             for kn in fns}
+    for kn, n in total.items():
+        if n == 0:
+            fail(f"shards phase never launched {kn}")
+    out["launches"] = total
+    return out
+
+
+def phase_serve(torch, np) -> dict:
+    """The serving tier on the card, on fig_shard_scale's one-replica
+    stream: 32 trickle sessions with an inline pump against
+    ``OverloadRuntime.run`` on the merged stream; the same sessions paced
+    on threads with the background pump (per-session delivery latency);
+    the sharded adapter with 2 shards on the thread drive; and a
+    ``ServingServer`` with 8 ``ServingClient``s over loopback."""
+    import threading
+
+    from repro_torch.launch import fig_shard_scale as F
+    from repro_torch.overload import OverloadConfig, OverloadRuntime
+    from repro_torch.serve import (ServingClient, ServingFrontend,
+                                   ServingServer)
+    from repro_torch.shardsvc import ShardServiceConfig
+
+    fns = _kernel_fns()
+    wl = F.workload()
+    stream = F.base_stream()
+    gpt = F.GROUPS_PER_TENANT
+    cfg = lambda: OverloadConfig(shed_policy="none",            # noqa: E731
+                                 micro_batch=F.MICRO_BATCH)
+    out = {}
+
+    def sync_run(backend):
+        ort = OverloadRuntime(wl, cfg(), backend=backend)
+        t0 = time.perf_counter()
+        res = ort.run(stream)
+        ort.shutdown()
+        if backend != "np":
+            torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    want_np, wall_np = sync_run("np")
+    _reset(*fns.values())
+    want, wall_sync = sync_run("cuda")
+    same = hold_rule(np, want, want_np, "OverloadRuntime cuda against np")
+    log(f"[serve] OverloadRuntime.run on the merged stream ({len(stream)} "
+        f"events, K={F.MICRO_BATCH}): cuda {wall_sync:.3f} s "
+        f"({len(stream) / wall_sync:.1f} events/s; launches {_launches()}), "
+        f"np {wall_np:.3f} s; {same} of {len(want)} windows bitwise against "
+        "np")
+    out["sync"] = {"wall_s": wall_sync, "events_per_s": len(stream) /
+                   wall_sync, "bitwise_np": same}
+
+    parts = F.session_parts(stream, F.N_SESSIONS)
+
+    def frontend(**kw):
+        kw.setdefault("overload", cfg())
+        return ServingFrontend(wl, np_backend="cuda", groups_per_tenant=gpt,
+                               **kw)
+
+    # 32 sessions, inline pump: round-robin one pane of each session
+    fe = frontend()
+    hs = [fe.open_session(tenant=t) for t, _ in parts]
+    t_hi = int(stream.time.max()) + 1
+    _reset(*fns.values())
+    t0 = time.perf_counter()
+    for c0 in range(0, t_hi, fe.pane):
+        for h, (_, part) in zip(hs, parts):
+            h.submit(part.time_slice(c0, c0 + fe.pane))
+            h.advance_to(c0 + fe.pane)
+        fe.pump()
+    for h in hs:
+        h.close()
+    got = fe.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    same = hold_rule(np, got, want, "serving inline pump")
+    if sum(launches.values()) == 0:
+        fail("serving inline pump: no kernel was launched")
+    log(f"[serve] {F.N_SESSIONS} sessions, inline pump: {wall:.3f} s "
+        f"({len(stream) / wall:.1f} events/s, {wall_sync / wall:.3f}x the "
+        f"synchronous run's rate); {same} of {len(want)} windows bitwise "
+        f"against OverloadRuntime.run (COUNT exact, rtol {RTOL_SHARD}); "
+        f"launches {launches}")
+    out["inline"] = {"wall_s": wall, "events_per_s": len(stream) / wall,
+                     "bitwise": same, "launches": launches}
+    in_process = got
+
+    # the same sessions paced on threads with the background pump
+    rate = 15_000                        # offered events/s, all sessions
+    fe = frontend()
+    hs = [fe.open_session(tenant=t) for t, _ in parts]
+    duration = len(stream) / rate
+    _reset(*fns.values())
+    fe.start(interval_s=0.001)
+    w0 = time.perf_counter()
+
+    def trickle(h, part):
+        steps = range(0, int(part.time.max()) + 1 if len(part) else 0,
+                      fe.pane)
+        period = duration / max(1, len(steps))
+        for k, c0 in enumerate(steps):
+            lag = w0 + (k + 1) * period - time.perf_counter()
+            if lag > 0:
+                time.sleep(lag)
+            h.submit(part.time_slice(c0, c0 + fe.pane))
+            h.advance_to(c0 + fe.pane)
+        h.close()
+
+    ths = [threading.Thread(target=trickle, args=(h, part))
+           for h, (_, part) in zip(hs, parts)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    got = fe.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    launches = _launches()
+    same = hold_rule(np, got, want, "serving background pump")
+    lat = [np.array([d.latency_ms for d in h.poll() if d.kind != "retract"])
+           for h in hs]
+    p50 = [float(np.percentile(x, 50)) if x.size else float("nan")
+           for x in lat]
+    p99 = [float(np.percentile(x, 99)) if x.size else float("nan")
+           for x in lat]
+    allv = np.concatenate(lat)
+    if sum(launches.values()) == 0:
+        fail("serving background pump: no kernel was launched")
+    log(f"[serve] {F.N_SESSIONS} sessions paced at {rate} events/s on "
+        f"threads, background pump: wall {wall:.3f} s, {allv.size} "
+        f"deliveries; delivery latency p50 {np.percentile(allv, 50):.3f} ms "
+        f"p99 {np.percentile(allv, 99):.3f} ms over all; per session p50 "
+        f"{min(p50):.3f}-{max(p50):.3f} ms, p99 {min(p99):.3f}-"
+        f"{max(p99):.3f} ms; {same} of {len(want)} windows bitwise; "
+        f"launches {launches}")
+    out["paced"] = {"rate": rate, "wall_s": wall, "deliveries": allv.size,
+                    "p50_ms": float(np.percentile(allv, 50)),
+                    "p99_ms": float(np.percentile(allv, 99)),
+                    "session_p50_ms": p50, "session_p99_ms": p99,
+                    "bitwise": same, "launches": launches}
+
+    # the sharded adapter, 2 shards on the thread drive
+    fe = frontend(backend="sharded", overload=None,
+                  shard_cfg=ShardServiceConfig(
+                      n_shards=2, groups_per_tenant=gpt, admission="none",
+                      parallel=True, overload=cfg()))
+    placement = fe._backend.svc.placement
+    for g in range(int(stream.group.max()) + 1):     # tenant t on shard t % 2
+        placement.override(g, (g // gpt) % 2)
+    hs = [fe.open_session(tenant=t) for t, _ in parts]
+    _reset(*fns.values())
+    t0 = time.perf_counter()
+    for c0 in range(0, t_hi, fe.pane):
+        for h, (_, part) in zip(hs, parts):
+            h.submit(part.time_slice(c0, c0 + fe.pane))
+            h.advance_to(c0 + fe.pane)
+        fe.pump()
+    for h in hs:
+        h.close()
+    got = fe.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    shard_launches = [s["executor_launches"]
+                      for s in fe._backend.svc.collect()["shards"]]
+    same = hold_rule(np, got, want, "sharded serving adapter")
+    if fe._backend.svc.backend != "cuda" or sum(launches.values()) == 0:
+        fail("sharded serving adapter: the shards did not launch kernels")
+    if min(shard_launches) == 0 or sum(shard_launches) != sum(
+            launches.values()):
+        fail(f"sharded serving adapter: shard launches {shard_launches}, "
+             f"kernel counters {launches}")
+    log(f"[serve] sharded adapter, 2 shards, thread drive: {wall:.3f} s "
+        f"({len(stream) / wall:.1f} events/s); {same} of {len(want)} windows "
+        f"bitwise; the shards' launches {shard_launches} are the kernels' "
+        f"{launches}")
+    out["sharded"] = {"wall_s": wall, "bitwise": same, "launches": launches}
+
+    # a server and 8 clients over loopback
+    parts8 = F.session_parts(stream, F.TRANSPORT_SESSIONS)
+    fds = len(os.listdir("/proc/self/fd"))
+    threads_before = set(threading.enumerate())
+    fe = frontend()
+    srv = ServingServer(fe)
+    host, port = srv.start()
+    ends = {}
+    ready = threading.Barrier(len(parts8))
+
+    def client(i, tenant, part):
+        c = ServingClient(host, port, tenant=tenant)
+        ready.wait(timeout=60)
+        for c0 in range(0, t_hi, fe.pane):
+            c.submit(part.time_slice(c0, c0 + fe.pane))
+            c.advance_to(c0 + fe.pane)
+        c.close()
+        ends[i] = (tenant, c.wait_end(timeout=300))
+        c.shutdown()
+
+    _reset(*fns.values())
+    t0 = time.perf_counter()
+    ths = [threading.Thread(target=client, args=(i, t, p))
+           for i, (t, p) in enumerate(parts8)]
+    for th in ths:
+        th.start()
+    deadline = time.perf_counter() + 300
+    while True:
+        sess = fe.summary()["sessions"]
+        if len(sess) >= len(parts8) and all(v["closed"]
+                                            for v in sess.values()):
+            break
+        if time.perf_counter() > deadline:
+            fail("loopback: the sessions never closed")
+        time.sleep(0.005)
+    srv.drain()
+    for th in ths:
+        th.join(timeout=300)
+    srv.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    wire = srv.summary()
+    same = 0
+    for i, (tenant, end) in sorted(ends.items()):
+        sub = {k: v for k, v in in_process.items() if k[1] // gpt == tenant}
+        same += hold_rule(np, end, sub, f"loopback client {i}")
+    if len(ends) != len(parts8):
+        fail(f"loopback: {len(ends)} of {len(parts8)} clients got END")
+    left = [t for t in threading.enumerate()
+            if t not in threads_before and t.is_alive()]
+    if left or len(os.listdir("/proc/self/fd")) > fds:
+        fail(f"loopback: threads {left} or fds left after stop()")
+    if sum(launches.values()) == 0:
+        fail("loopback: no kernel was launched")
+    log(f"[serve] ServingServer + {len(parts8)} ServingClients over "
+        f"loopback: {wall:.3f} s, frames in {wire['frames_in']} out "
+        f"{wire['frames_out']}, bytes in {wire['bytes_in']} out "
+        f"{wire['bytes_out']}; every END equal to the in-process run's "
+        f"windows ({same} bitwise); no thread or fd left; launches "
+        f"{launches}")
+    out["loopback"] = {"wall_s": wall, "bitwise": same,
+                       "launches": launches, "frames_in": wire["frames_in"]}
+    total = {kn: sum(out[k]["launches"][kn] for k in out
+                     if "launches" in out[k]) for kn in fns}
+    out["launches"] = total
+    return out
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -1604,6 +2092,12 @@ def main() -> None:
     base_res = phase_baselines(torch, np)
     obs_res = phase_obs(torch, np)
     stream_res = phase_stream(torch, np, main_res)
+    t_phase = time.perf_counter()
+    shards_res = phase_shards(torch, np)
+    log(f"[shards] phase wall {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    serve_res = phase_serve(torch, np)
+    log(f"[serve] phase wall {time.perf_counter() - t_phase:.1f} s")
     check = next(c for c in kernels["hamlet_propagate"]["checks"]
                  if c["case"] == "solved rows in global memory")
     log(f"[baselines] the masked kernel's global-memory variant: (1, "
@@ -1619,6 +2113,8 @@ def main() -> None:
     for name, e in kernels.items():
         e["launches"] = main_res["launches"][name]
         e["main_path"] = main_res["shapes"][name]
+        e["shards_launches"] = shards_res["launches"][name]
+        e["serve_launches"] = serve_res["launches"][name]
     hp = kernels["hamlet_propagate"]
     hp["greta"] = dict(base_res["greta_shape"],
                        launches=base_res["launches"])
@@ -1627,7 +2123,8 @@ def main() -> None:
                       "card": card, "config": MAIN_CONFIG,
                       "baselines": {k: base_res[k] for k in
                                     ("finite_cut", "large_finite", "paper")},
-                      "obs": obs_res, "stream": stream_res},
+                      "obs": obs_res, "stream": stream_res,
+                      "shards": shards_res, "serve": serve_res},
                      default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,13 @@ executes the backlog with one launch per size bucket:
 ``batched=False`` degrades to the legacy one-launch-per-burst execution —
 the differential tests assert the two modes agree bitwise.
 
+``shard_slices`` is the pane-batch sharding hook: a callable mapping a
+bucket's batch size to a list of slices (e.g.
+``distributed.sharding.pane_bucket_shards``); each sub-batch is launched
+separately so buckets can be split across devices/hosts.  Both kernels
+compute every batch element on its own, so the split results are bitwise
+those of the whole bucket.
+
 Residency rules (cross-pane micro-batching support):
 
 * **numpy backend** — the stacked *input* staging arrays are reused across
@@ -64,11 +71,12 @@ class PropagateJob:
 
 class PaneBatchExecutor:
     def __init__(self, backend: str = "cuda", batched: bool = True,
-                 obs=None, device=None):
+                 shard_slices=None, obs=None, device=None):
         self.backend = backend
         # None on the np backend; raises when a missing GPU is asked for
         self.device = ops.resolve_device(backend, device)
         self.batched = batched
+        self.shard_slices = shard_slices
         self.obs = obs
         self._pending: list[PropagateJob] = []
         # reusable host staging for stacked inputs, keyed by (kind, b, d,
@@ -117,13 +125,29 @@ class PaneBatchExecutor:
         # launch every bucket, then resolve the whole flush with one host
         # sync (device backends stay device-resident until here)
         launched = self._launch_dense(dense) + self._launch_masked(masked)
-        outs = ops.device_get_all([o for _, o in launched])
-        for (bucket, _), arr in zip(launched, outs):
+        outs = ops.device_get_all([o for _, _, _, o in launched])
+        full: dict[int, np.ndarray] = {}
+        for (bucket, shape, sl, _), host in zip(launched, outs):
+            arr = full.get(id(bucket))
+            if arr is None:
+                arr = full[id(bucket)] = np.empty(shape, dtype=host.dtype)
+            arr[sl] = host
+        done: set[int] = set()
+        for bucket, _, _, _ in launched:
+            if id(bucket) in done:
+                continue
+            done.add(id(bucket))
+            arr = full[id(bucket)]
             for i, j in enumerate(bucket):
                 j.result = arr[i, : j.base.shape[0]]
         if self.obs is not None:
             self.obs.observe("batch_exec.launches_per_flush",
                              self.launches - l0, OCCUPANCY_BUCKETS)
+
+    def _slices(self, nb: int) -> list[slice]:
+        if self.shard_slices is None:
+            return [slice(0, nb)]
+        return list(self.shard_slices(nb))
 
     def _stage(self, kind: str, nb: int, item_shape: tuple,
                dtype) -> np.ndarray:
@@ -153,9 +177,12 @@ class PaneBatchExecutor:
                 bj = j.base.shape[0]
                 stacked[i, :bj] = j.base
                 stacked[i, bj:] = 0.0
-            self.launches += 1
-            launched.append((bucket, ops.propagate_dense_batched(
-                stacked, backend=self.backend, device=self.device)))
+            for sl in self._slices(nb):
+                self.launches += 1
+                launched.append((bucket, (nb, bp, d), sl,
+                                 ops.propagate_dense_batched(
+                                     stacked[sl], backend=self.backend,
+                                     device=self.device)))
         return launched
 
     def _launch_masked(self, jobs: list[PropagateJob]) -> list:
@@ -175,13 +202,17 @@ class PaneBatchExecutor:
             for i, j in enumerate(bucket):
                 base[i] = j.base
                 mask[i] = j.mask
-            self.launches += 1
-            if self.backend == "np" and b < _FAST_MIN_B:
-                # stacked row-loop oracle: b row steps for the whole bucket,
-                # each slice bitwise equal to the per-burst call
-                out = ref.numpy_prefix_propagate_batched(base, mask)
-            else:
-                out = ops.propagate_batched(base, mask, backend=self.backend,
-                                            device=self.device)
-            launched.append((bucket, out))
+            small = self.backend == "np" and b < _FAST_MIN_B
+            for sl in self._slices(nb):
+                self.launches += 1
+                if small:
+                    # stacked row-loop oracle: b row steps for the whole
+                    # bucket, each slice bitwise equal to the per-burst call
+                    out = ref.numpy_prefix_propagate_batched(base[sl],
+                                                             mask[sl])
+                else:
+                    out = ops.propagate_batched(base[sl], mask[sl],
+                                                backend=self.backend,
+                                                device=self.device)
+                launched.append((bucket, (nb, b, d), sl, out))
         return launched

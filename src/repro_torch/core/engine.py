@@ -1812,15 +1812,18 @@ class HamletRuntime:
     size bucket per K panes (bitwise identical to ``micro_batch=1``).
     ``plan_cache`` attaches a per-component :class:`PanePlanCache` shared by
     every processor the runtime spawns (see ``core/plan_cache.py``).
+    ``shard_slices`` splits each bucket's launch into sub-batch launches
+    (the pane-batch sharding hook of ``core/batch_exec.py``).
     ``obs`` attaches a :class:`repro_torch.obs.Observability` facade: phase spans,
     lifecycle instants, executor metrics and the sharing-decision audit log
     all record through it (None — the default — costs nothing).
     """
 
     def __init__(self, workload: Workload, policy=None, backend: str = "cuda",
-                 batch_exec: bool = True, micro_batch: int = 1,
-                 plan_cache: bool = True, plan_cache_size: int = 128,
-                 fold_exec: bool = True, obs=None, device=None):
+                 batch_exec: bool = True, shard_slices=None,
+                 micro_batch: int = 1, plan_cache: bool = True,
+                 plan_cache_size: int = 128, fold_exec: bool = True,
+                 obs=None, device=None):
         from .optimizer import DynamicPolicy
 
         # raises when a GPU is asked for (the default) and none is present
@@ -1839,6 +1842,7 @@ class HamletRuntime:
         # one executor for the whole runtime: every pane — shed or admitted,
         # any component — funnels its jobs through the same bucketed batches
         self.executor = PaneBatchExecutor(backend=backend, batched=batch_exec,
+                                          shard_slices=shard_slices,
                                           device=self.device)
         # one fold executor likewise: finalize backlogs of every pending
         # pane fold as stacked per-shape launches (None = sequential replay)

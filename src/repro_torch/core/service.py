@@ -41,8 +41,11 @@ emit optimistically, revise from stored pane matrices — lives in
 ``repro_torch.eventtime.revision``.)
 
 This wrapper is single-instance: one runtime, one plan cache, one epoch
-clock.  (The JAX package's multi-tenant tier above it, ``shardsvc``, is not
-ported yet.)
+clock.  The multi-tenant tier above it lives in
+:mod:`repro_torch.shardsvc`: a router places tenants' groups on N shard
+workers, each an :class:`~repro_torch.overload.OverloadRuntime` of its
+own, and under ``none``/``global_fixed`` admission the N-shard results
+match the 1-shard run's.
 
 The replay runtime runs on the service's ``backend``/``device``, as
 :class:`~repro_torch.core.engine.HamletRuntime` does: the default is the

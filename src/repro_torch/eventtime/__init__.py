@@ -13,7 +13,7 @@ runtime and relaxes that:
   their pane and re-fold affected windows from stored transfer matrices,
   emitting retract/amend records;
 * :mod:`frontier` — per-shard frontier export for the sharded service tier
-  (``shardsvc``, not ported yet): a router-fed watermark policy plus the
+  (:mod:`repro_torch.shardsvc`): a router-fed watermark policy plus the
   frontier snapshot shards report to the cross-shard alignment coordinator;
 * hopelessly late events (behind the lateness horizon) are routed into the
   overload subsystem's error accountant, keeping the shedding bounds sound

@@ -1,8 +1,7 @@
 """Per-shard frontier export for the sharded service tier.
 
-A shard in the sharded service (``shardsvc``, not ported yet) owns its
-own watermark:
-its reorder buffer seals panes as *its* frontier allows, independently of
+A shard in the sharded service (:mod:`repro_torch.shardsvc`) owns its
+own watermark: its reorder buffer seals panes as *its* frontier allows, independently of
 every other shard.  Two pieces make that work:
 
 * :class:`RoutedFrontier` — the watermark policy a shard runs.  It is a

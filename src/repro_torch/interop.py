@@ -14,9 +14,18 @@ value)`` triples), ``edge_preds`` (type -> ``(attr, op)`` pairs),
 ``within``, ``slide`` and ``group_by``.  A pattern is a nested tuple:
 ``("type", name)``, ``("kleene", p)``, ``("not", p)``, ``("seq", (p, ...))``,
 ``("or", p, q)`` or ``("and", p, q)``.
+
+What crosses a process or a socket as a pickle holds builtins and numpy
+only — the wire protocol's HELLO and END frames, whose reader may be the
+JAX package's client or server, and the replies of a process-mode shard
+worker.  :func:`plain_loads` unpickles such bytes and refuses any other
+class, a tensor or an object of this package among them.
 """
 
 from __future__ import annotations
+
+import io
+import pickle
 
 import numpy as np
 
@@ -25,7 +34,8 @@ from .core.pattern import And, EventType, Kleene, Not, Or, Seq
 from .core.query import Agg, EdgePred, Pred, Query, Workload
 
 __all__ = ["schema_from", "batch_from", "stream_columns", "pattern_spec",
-           "pattern_from", "workload_spec", "workload_from"]
+           "pattern_from", "workload_spec", "workload_from",
+           "plain_loads"]
 
 _UNARY = {"kleene": Kleene, "not": Not}
 _BINARY = {"or": Or, "and": And}
@@ -117,3 +127,22 @@ def workload_from(spec: dict) -> Workload:
         for q in spec["queries"]]
     return Workload(schema, queries,
                     sharable_mode=spec.get("sharable_mode", "units"))
+
+
+# the top-level modules whose classes a plain pickle may name
+_PLAIN_ROOTS = frozenset({"builtins", "numpy", "collections", "copyreg",
+                          "_codecs"})
+
+
+class _PlainUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.split(".", 1)[0] not in _PLAIN_ROOTS:
+            raise pickle.UnpicklingError(
+                f"{module}.{name} is not a builtin or numpy type")
+        return super().find_class(module, name)
+
+
+def plain_loads(data: bytes):
+    """Unpickle ``data``, which must name builtins and numpy types only
+    (raises ``pickle.UnpicklingError`` on any other class)."""
+    return _PlainUnpickler(io.BytesIO(data)).load()

@@ -12,6 +12,11 @@ name derived from the sources' and flags' digest, so an edited source never
 loads a stale build; a finished build is installed by an atomic rename, so
 processes building at once never load a half-written file.  Nothing here
 runs at import: the first kernel launch calls :func:`load`.
+
+Threads may launch the kernels at once (the sharded service's thread drive,
+the serving tier's pump): one lock, :data:`LOCK`, makes a process build and
+load the library once, and guards the wrappers' launch counters
+(:func:`count_launch`).
 """
 
 from __future__ import annotations
@@ -22,14 +27,15 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
-__all__ = ["DTYPE_CODES", "KernelLibrary", "build_from", "load",
-           "nvcc_path"]
+__all__ = ["DTYPE_CODES", "KernelLibrary", "LOCK", "build_from",
+           "count_launch", "load", "nvcc_path"]
 
 CSRC = Path(__file__).with_name("csrc")
 SOURCES = ("hamlet_propagate.cu", "hamlet_dense.cu", "hamlet_bindings.cpp")
@@ -101,6 +107,18 @@ class KernelLibrary:
 
 _LOADED: KernelLibrary | None = None
 
+# guards _LOADED and the wrappers' launch counters
+LOCK = threading.Lock()
+
+
+def count_launch(fn, key) -> None:
+    """Count one launch of the kernel behind wrapper ``fn``, of shape key
+    ``key``, in ``fn.launches`` and ``fn.shapes`` (under :data:`LOCK`, so
+    no increment is lost between threads)."""
+    with LOCK:
+        fn.launches += 1
+        fn.shapes[key] += 1
+
 
 def _digest(nvcc: str, csrc: Path = CSRC) -> str:
     h = hashlib.sha256()
@@ -148,19 +166,23 @@ def _compile(nvcc: str, build_dir: Path,
 
 def load() -> KernelLibrary:
     """Build the kernels if this source state has no build yet, load the
-    library once per process, and return it."""
+    library once per process, and return it.  Threads that call it at once
+    wait on :data:`LOCK` for the one that builds."""
     global _LOADED
     if _LOADED is not None:
         return _LOADED
-    nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = BUILD_DIR / f"libhamlet_kernels_{_digest(nvcc)}.so"
-    build_s, log = 0.0, ""
-    if not path.is_file():
-        t0 = time.perf_counter()
-        path, log = _compile(nvcc, BUILD_DIR)
-        build_s = time.perf_counter() - t0
-    _LOADED = KernelLibrary(ctypes.CDLL(str(path)), path, build_s, log)
+    with LOCK:
+        if _LOADED is None:
+            nvcc = nvcc_path()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            path = BUILD_DIR / f"libhamlet_kernels_{_digest(nvcc)}.so"
+            build_s, log = 0.0, ""
+            if not path.is_file():
+                t0 = time.perf_counter()
+                path, log = _compile(nvcc, BUILD_DIR)
+                build_s = time.perf_counter() - t0
+            _LOADED = KernelLibrary(ctypes.CDLL(str(path)), path, build_s,
+                                    log)
     return _LOADED
 
 

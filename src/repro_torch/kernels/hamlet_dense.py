@@ -69,9 +69,8 @@ def dense_propagate_cuda(base: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(base)
     if base.numel():
         _build.load().dense_propagate(base, out)
-        dense_propagate_cuda.launches += 1
-        dense_propagate_cuda.shapes[
-            (nb, b, d, str(base.dtype).removeprefix("torch."))] += 1
+        _build.count_launch(dense_propagate_cuda, (nb, b, d, str(
+            base.dtype).removeprefix("torch.")))
     return out
 
 

@@ -68,9 +68,8 @@ def masked_prefix_propagate_cuda(base: torch.Tensor,
     out = torch.empty_like(base)
     if base.numel():
         _build.load().masked_propagate(base, mask, out)
-        masked_prefix_propagate_cuda.launches += 1
-        masked_prefix_propagate_cuda.shapes[
-            (nb, b, d, str(base.dtype).removeprefix("torch."))] += 1
+        _build.count_launch(masked_prefix_propagate_cuda, (nb, b, d, str(
+            base.dtype).removeprefix("torch.")))
     return out
 
 

@@ -15,6 +15,8 @@ the kernels take any ``b`` and ``d``.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -24,8 +26,8 @@ from .hamlet_propagate import masked_prefix_propagate_cuda
 
 __all__ = ["propagate", "propagate_batched", "propagate_dense",
            "propagate_dense_batched", "fold_stacked", "fold_rounds_scan",
-           "device_get_all", "resolve_device", "PROPAGATE_BACKENDS",
-           "DENSE_B_MAX"]
+           "device_get_all", "resolve_device", "on_device",
+           "kernel_launches", "PROPAGATE_BACKENDS", "DENSE_B_MAX"]
 
 PROPAGATE_BACKENDS = ("np", "torch", "cuda")
 
@@ -57,6 +59,21 @@ def resolve_device(backend: str, device=None) -> torch.device | None:
                            "ask for backend='torch', device='cpu' or "
                            "backend='np' to run on the host")
     return dev
+
+
+def on_device(dev: torch.device | None):
+    """A context that makes ``dev`` the calling thread's current CUDA
+    device (a thread's current device is its own, and a kernel launches on
+    it); it does nothing for the host (``None`` or a CPU device)."""
+    if dev is not None and dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def kernel_launches() -> dict[str, int]:
+    """The hand-written kernels' launch counters in this process."""
+    return {"hamlet_propagate": masked_prefix_propagate_cuda.launches,
+            "hamlet_dense": dense_propagate_cuda.launches}
 
 
 def _dev(backend: str, device) -> torch.device:

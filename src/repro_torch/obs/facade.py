@@ -11,8 +11,8 @@ observability pays nothing.
 disconnected stat silos: it folds ``RunStats`` and the executor counters
 into one dict next to the registry series and the audit summary, plus the
 ``summary()`` of any overload, event-time or serving object it is handed.
-It imports none of those layers (they are not ported yet): it reads them
-only through ``summary()``.
+It imports none of those layers: it reads them only through
+``summary()``.
 """
 
 from __future__ import annotations

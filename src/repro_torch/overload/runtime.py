@@ -51,12 +51,12 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
 
 from ..core.engine import (HamletRuntime, PaneMicroBatcher, RunStats,
                            _Instance, advance_instances, combine_results)
 from ..core.events import EventBatch
 from ..core.query import Workload
+from ..kernels import ops
 from ..obs.metrics import LATENCY_MS_BUCKETS
 from .accountant import ErrorAccountant
 from .config import OverloadConfig
@@ -339,10 +339,7 @@ class OverloadRuntime:
         """The pipelined flush, on the worker thread: the thread's current
         CUDA device is made the runtime's own, so every launch and fetch of
         the flush goes to that device's current (default) stream."""
-        dev = self.rt.device
-        if dev is None or dev.type != "cuda":
-            return self._flush_one(backlog)
-        with torch.cuda.device(dev):
+        with ops.on_device(self.rt.device):
             return self._flush_one(backlog)
 
     def _flush_one(self, backlog: list) -> None:

@@ -6,9 +6,10 @@
 * without a CUDA device the default entry points raise instead of
   running on the CPU, and ``chip_smoke.py`` exits non-zero, printing no
   result — in the checkout and alone in a directory;
-* the service CLI's default and ``--overload`` modes run on a backend the
-  caller asks for, ``--trace`` writes a Chrome-trace JSONL beside its
-  report, and the modes that are not ported yet exit with an error.
+* the service CLI's default, ``--overload``, ``--shards`` and ``--serve``
+  modes run on a backend the caller asks for (the last two with the
+  reference CLI's windows), and ``--trace`` writes a Chrome-trace JSONL
+  beside its report.
 """
 
 import json
@@ -62,7 +63,13 @@ for n in ("repro_torch.core.baselines.greta", "repro_torch.core.minmax",
 for pkg, mods in (("overload", ("config", "controller", "ingress", "shedding",
                                 "accountant", "runtime")),
                   ("eventtime", ("config", "watermark", "reorder",
-                                 "frontier", "revision"))):
+                                 "frontier", "revision")),
+                  ("shardsvc", ("placement", "coordinator", "admission",
+                                "service", "procdrive")),
+                  ("serve", ("session", "scheduler", "frontend",
+                             "transport")),
+                  ("distributed", ("sharding",)),
+                  ("launch", ("fig_shard_scale",))):
     for m in mods:
         assert f"repro_torch.{pkg}.{m}" in names, (pkg, m)
 """
@@ -73,8 +80,9 @@ for pkg, mods in (("overload", ("config", "controller", "ingress", "shedding",
 
 
 def test_streaming_layers_import_without_jax_or_repro():
-    """The service, overload and event-time layers import in an interpreter
-    where ``jax`` and ``repro`` cannot be imported at all."""
+    """The service, overload, event-time, sharded-service and serving
+    layers import in an interpreter where ``jax`` and ``repro`` cannot be
+    imported at all."""
     code = """
 import sys
 class Block:
@@ -84,9 +92,13 @@ class Block:
         return None
 sys.meta_path.insert(0, Block())
 import repro_torch.core.service, repro_torch.overload, repro_torch.eventtime
+import repro_torch.shardsvc, repro_torch.serve
 from repro_torch.core.service import HamletService
 from repro_torch.overload import OverloadRuntime
 from repro_torch.eventtime import EventTimeRuntime
+from repro_torch.shardsvc import ShardedHamletService, ProcShardWorker
+from repro_torch.serve import ServingFrontend, ServingServer, ServingClient
+from repro_torch.launch import fig_shard_scale
 print("ok")
 """
     r = _run(["-c", code])
@@ -132,6 +144,54 @@ def test_streaming_entry_points_default_to_the_card(entry):
     assert rt.device.type == "cpu" and rt.backend == "torch"
     on_np = make(backend="np")
     assert (on_np if entry == "HamletService" else on_np.rt).device is None
+
+
+@pytest.mark.parametrize("entry", ["ShardedHamletService", "ShardWorker",
+                                   "ServingFrontend"])
+def test_sharded_and_serving_entry_points_default_to_the_card(entry):
+    """The sharded service, its workers and the serving front-end run the
+    hand-written kernels on ``cuda:0`` unless told otherwise: without a GPU
+    they raise, and they run on the host only when asked."""
+    _no_cuda()
+    import inspect
+
+    from repro_torch.core.pattern import EventType, Kleene, Seq
+    from repro_torch.core.query import Query, Workload
+    from repro_torch.overload import OverloadConfig
+    from repro_torch.serve import ServingFrontend
+    from repro_torch.shardsvc import (ShardedHamletService,
+                                      ShardServiceConfig, ShardWorker)
+    from repro_torch.streams.generator import RIDESHARING_SCHEMA
+
+    q = Query("q", Seq(EventType("Request"), Kleene(EventType("Travel"))))
+    wl = Workload(RIDESHARING_SCHEMA, [q])
+    key = "np_backend" if entry == "ServingFrontend" else "backend"
+    cls, make, runtime = {
+        "ShardedHamletService": (
+            ShardedHamletService,
+            lambda **kw: ShardedHamletService(wl, ShardServiceConfig(), **kw),
+            lambda o: o.workers[-1].rt.rt),
+        "ShardWorker": (
+            ShardWorker,
+            lambda **kw: ShardWorker(0, wl, OverloadConfig(), **kw),
+            lambda o: o.rt.rt),
+        "ServingFrontend": (
+            ServingFrontend,
+            lambda **kw: ServingFrontend(wl, **{
+                ("np_backend" if k == "backend" else k): v
+                for k, v in kw.items()}),
+            lambda o: o._backend.rt.rt),
+    }[entry]
+    assert inspect.signature(cls).parameters[key].default == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(backend="torch")
+    with pytest.raises(ValueError):
+        make(backend="cuda", device="cpu")
+    rt = runtime(make(backend="torch", device="cpu"))
+    assert rt.device.type == "cpu" and rt.backend == "torch"
+    assert runtime(make(backend="np")).device is None
 
 
 def test_default_runtime_needs_a_gpu():
@@ -212,17 +272,110 @@ def test_cli_default_mode_on_the_host():
 
 
 def test_cli_refuses_unported_modes_and_missing_gpu():
+    """Every mode of the JAX package's launcher is ported now (none is
+    refused as unported), and each mode that runs an engine refuses to
+    start on the default ``cuda`` backend without a GPU."""
     from repro_torch.launch import hamlet_service
 
-    for flags in (["--serve"], ["--shards", "2"],
-                  ["--listen", "127.0.0.1:0"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            hamlet_service.main(flags + ["--backend", "np"])
+    assert not hasattr(hamlet_service, "UNPORTED")
+    args = hamlet_service.parse_args(
+        ["--serve", "--shards", "2", "--listen", "127.0.0.1:0", "--connect",
+         "127.0.0.1:1", "--session-index", "3", "--credit-window", "64"])
+    assert (args.serve, args.shards, args.listen, args.connect,
+            args.session_index, args.credit_window) == (
+        True, 2, "127.0.0.1:0", "127.0.0.1:1", 3, 64)
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            hamlet_service.main(["--minutes", "1"])
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            hamlet_service.main(["--overload", "--minutes", "1"])
+        for flags in ([], ["--overload"], ["--shards", "2"], ["--serve"],
+                      ["--listen", "127.0.0.1:0"]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                hamlet_service.main(flags + ["--minutes", "1"])
+
+
+def _reference_cli_windows(mode, args, monkeypatch):
+    """The windows the JAX package's launcher computes in ``--shards`` or
+    ``--serve`` mode for the same parsed arguments (its functions print and
+    return nothing, so the service or front-end they build is captured)."""
+    import repro.serve as ref_serve
+    import repro.shardsvc as ref_shardsvc
+    from repro.launch import hamlet_service as ref_cli
+
+    made = []
+    mod, name, run = {
+        "shards": (ref_shardsvc, "ShardedHamletService", ref_cli.run_sharded),
+        "serve": (ref_serve, "ServingFrontend", ref_cli.run_serving)}[mode]
+    base = getattr(mod, name)
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(mod, name, Recorded)
+    run(args)
+    assert len(made) == 1
+    return made[0].results()
+
+
+@pytest.mark.parametrize("mode,flags", [
+    ("shards", ["--shards", "2", "--tenants", "2"]),
+    ("serve", ["--serve", "--sessions", "4", "--tenants", "2",
+               "--shed-policy", "none"]),
+])
+def test_cli_shards_and_serve_on_the_host(mode, flags, capsys, monkeypatch):
+    """``--shards 2`` and ``--serve --sessions 4`` on ``--backend np``: the
+    port's windows equal the reference CLI's bitwise, and the report names
+    the backend.  (``--serve`` runs unshed here: its default shedding
+    follows a PID controller on the host's clock.)"""
+    from repro_torch.core.engine import vals_equal
+    from repro_torch.launch import hamlet_service
+
+    argv = flags + ["--backend", "np", "--minutes", "1"]
+    got = hamlet_service.main(argv)
+    out = capsys.readouterr().out
+    assert "backend=np" in out and f"windows={len(got)}" in out
+    want = _reference_cli_windows(mode, hamlet_service.parse_args(argv),
+                                  monkeypatch)
+    assert got and got.keys() == want.keys()
+    assert all(vals_equal(got[k], want[k]) for k in want)
+
+
+def test_cli_listen_and_connect_on_the_host():
+    """``--listen`` and two ``--connect`` clients in three processes over
+    loopback on ``--backend np``: every session closes, the server drains,
+    and each client's END frame holds its tenant's windows."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    common = ["-m", "repro_torch.launch.hamlet_service", "--sessions", "2",
+              "--tenants", "2", "--minutes", "1"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    clients = []
+    srv = subprocess.Popen(
+        [sys.executable, *common, "--listen", f"127.0.0.1:{port}",
+         "--backend", "np"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        assert "listening on" in srv.stdout.readline()
+        clients = [subprocess.Popen(
+            [sys.executable, *common, "--connect", f"127.0.0.1:{port}",
+             "--session-index", str(i)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i in range(2)]
+        outs = [c.communicate(timeout=120) for c in clients]
+        out, err = srv.communicate(timeout=120)
+    finally:
+        for proc in (srv, *clients):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    assert srv.returncode == 0, err
+    assert "serve: sessions=2 backend=np" in out and "windows=" in out
+    for c, (c_out, c_err) in zip(clients, outs):
+        assert c.returncode == 0, c_err
+        assert c_out.startswith("session ") and "windows=" in c_out
+        assert "windows=0 " not in c_out
 
 
 @pytest.mark.parametrize("backend", ["np", "torch"])
