@@ -99,7 +99,22 @@ Phases, in order; a failure in any of them exits non-zero:
               with 2 shards on the thread drive (each shard launching);
               and a ``ServingServer`` with 8 ``ServingClient``s over
               loopback, every END frame held against the in-process run,
-              no thread and no fd left after ``stop()``.
+              no thread and no fd left after ``stop()``;
+11. lm      — the LM substrate (``repro_torch.{configs,models}``,
+              ``serve.ServeEngine``, ``launch.serve``; plain torch ops, no
+              TPU kernel): all ten architectures at ``reduce_for_smoke``
+              size in f32 on the card against the CPU (forward logits,
+              rtol 1e-4) and prefill + decode against forward on the card
+              (2e-3), h2o-danube's smoke engine tokens equal to the CPU's;
+              gemma2-2b at full width in bf16 through ``launch.serve``'s
+              ``generate`` (batch 4, prompt 6,144, 32 tokens: parameters,
+              weight bytes, peak memory, prefill ms, decode ms per step,
+              tok/s, every logit finite) and four decode steps under the
+              profiler; decode consistency at 6,144 tokens (ring slot
+              2,048) in bf16 (0.12) and, with the weights cast, in f32
+              (2e-3); ``ServeEngine`` with 8 heavy-tailed requests in two
+              gangs; batched against sequential first-token logits in f32.
+              Sets ``allow_bf16_reduced_precision_reduction = False``.
 
 Each path's kernel launches are counted from zero just before it runs; a
 path that should launch a kernel and did not fails the run.
@@ -2068,6 +2083,334 @@ def phase_serve(torch, np) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the LM substrate: configs, models, the token serving engine, launch.serve
+# --------------------------------------------------------------------------
+
+LM_ARCH = "gemma2-2b"           # launch.serve's default architecture
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 6_144, 32
+# 6,144 > window + chunk (4,096 + 512): the banded local prefill, the
+# chunked global prefill and, decoding token 6,144, the ring's wrap-around
+RTOL_LM_DEVICE = 1e-4   # f32 logits, card against the CPU (smoke size)
+RTOL_LM_DECODE = 2e-3   # prefill + decode against forward, f32 (the
+                        # reference's test_smoke_decode_consistency bound)
+RTOL_LM_BF16 = 0.12     # the same at full width in bf16: 26 layers of
+                        # bf16 roundings on two paths (measured 0.0579 on
+                        # an H100 80GB HBM3; the bound is twice that)
+PEAK_BYTES_S = 3.35e12  # H100 SXM memory rate (data sheet)
+
+
+def _lm_err(np, got, want) -> float:
+    g = got.detach().float().cpu().numpy()
+    w = want.detach().float().cpu().numpy()
+    if g.shape != w.shape:
+        fail(f"lm: shapes {g.shape} != {w.shape}")
+    return float(np.max(np.abs(g - w) / (1.0 + np.abs(w))))
+
+
+def _lm_inputs(np, cfg, T: int, n_dec: int, seed: int = 3):
+    """numpy batches over T positions for one smoke architecture, as the
+    port's CPU tests build them: ``full`` (all T), ``pre`` (the first
+    T - n_dec) and ``dec[j]`` (position T - n_dec + j)."""
+    B = 2
+    rng = np.random.default_rng(seed)
+    n_vis = 4 if cfg.frontend == "patches" else 0
+    toks = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
+    full = {"tokens": toks[:, :T - n_vis]}
+    pre = {"tokens": toks[:, :T - n_vis - n_dec]}
+    dec = [{"token": toks[:, T - n_vis - n_dec + j][:, None],
+            "pos": np.full((B,), T - n_dec + j, np.int32)}
+           for j in range(n_dec)]
+    if cfg.enc_dec:
+        full["frames"] = pre["frames"] = rng.standard_normal(
+            (B, T - n_dec, cfg.d_model)).astype(np.float32)
+    if n_vis:
+        full["patch_embeds"] = pre["patch_embeds"] = rng.standard_normal(
+            (B, n_vis, cfg.d_model)).astype(np.float32)
+    if cfg.mrope_sections:
+        P = np.broadcast_to(np.arange(T), (3, B, T)).astype(np.int32)
+        full["positions"] = P
+        pre["positions"] = P[:, :, :T - n_dec]
+        for j, d in enumerate(dec):
+            d["positions"] = P[:, :, T - n_dec + j:T - n_dec + j + 1]
+    return full, pre, dec
+
+
+def _on(torch, np, batch: dict, dev) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in batch.items()}
+
+
+def lm_smoke(torch, np, dev) -> dict:
+    """All ten architectures at ``reduce_for_smoke`` size in f32: the card
+    against the port on the CPU with the same weights (forward logits),
+    and on the card prefill S + decode token S against the forward over
+    S + 1; then h2o-danube's smoke ``ServeEngine`` (tests/test_serve.py's
+    setup) gives the same greedy tokens on the card as on the CPU."""
+    import copy
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS, get_config, reduce_for_smoke
+    from repro_torch.models import LM, decode_fn, init_cache, prefill_fn
+    from repro_torch.serve import ServeEngine
+
+    cpu = torch.device("cpu")
+    S = 16
+    out = {}
+    for arch in ARCHS:
+        cfg = replace(reduce_for_smoke(get_config(arch)), dtype="float32",
+                      capacity_factor=8.0)
+        host = LM(cfg, device=cpu, seed=0)
+        card = copy.deepcopy(host).to(dev)
+        full, pre, dec = _lm_inputs(np, cfg, S + 1, 1)
+        with torch.inference_mode():
+            want, _, _ = host(_on(torch, np, full, cpu))
+            got, _, _ = card(_on(torch, np, full, dev))
+            e_dev = _lm_err(np, got, want)
+            cache = init_cache(cfg, 2, S + 1, device=dev)
+            _, cache = prefill_fn(with_cache=True)(card, cache,
+                                                    _on(torch, np, pre, dev))
+            step, _ = decode_fn()(card, cache, _on(torch, np, dec[0], dev))
+            e_dec = _lm_err(np, step, got[:, -1])
+        torch.cuda.synchronize()
+        log(f"[lm] smoke {arch}: card vs CPU forward max rel err {e_dev:.3e}"
+            f" (bound {RTOL_LM_DEVICE:g}); decode vs forward on the card "
+            f"{e_dec:.3e} (bound {RTOL_LM_DECODE:g})")
+        if not (e_dev <= RTOL_LM_DEVICE and e_dec < RTOL_LM_DECODE):
+            fail(f"lm smoke {arch}: forward {e_dev:.3e}, decode {e_dec:.3e}")
+        out[arch] = {"forward_err": e_dev, "decode_err": e_dec}
+
+    cfg = replace(reduce_for_smoke(get_config("h2o-danube-1.8b")),
+                  dtype="float32")
+    host = LM(cfg, device=cpu, seed=0)
+    card = copy.deepcopy(host).to(dev)
+    toks = []
+    for model, d in ((host, cpu), (card, dev)):
+        eng = ServeEngine(model, max_batch=3, device=d)
+        rng = np.random.default_rng(0)
+        for _ in range(7):
+            eng.submit(rng.integers(0, cfg.vocab, rng.integers(3, 9)),
+                       max_new=5)
+        eng.run()
+        toks.append([eng.completed[r].tokens for r in range(7)])
+    log(f"[lm] smoke ServeEngine h2o-danube: 7 requests, card tokens equal "
+        f"to the CPU's: {toks[0] == toks[1]}")
+    if toks[0] != toks[1]:
+        fail(f"lm smoke ServeEngine: card {toks[1]} != CPU {toks[0]}")
+    out["engine_tokens_equal"] = True
+    return out
+
+
+def lm_decode_profile(torch, np, model, steps: int = 4) -> dict:
+    """``steps`` decode steps of the full-width batch (after a prefill of
+    ``LM_PROMPT`` tokens) under ``torch.profiler``: wall per step, the
+    device's busy share of it, kernels per step and the costliest kernels
+    by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import decode_fn, init_cache, prefill_fn
+
+    cfg, dev = model.cfg, model.device
+    batch = _on(torch, np, launch_serve.prompts(cfg, LM_BATCH, LM_PROMPT),
+                dev)
+    with torch.inference_mode():
+        cache = init_cache(cfg, LM_BATCH, LM_PROMPT + steps, device=dev,
+                           dtype=model.dtype)
+        logits, cache = prefill_fn(with_cache=True)(model, cache, batch)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                logits, cache = decode_fn()(model, cache, {
+                    "token": nxt[:, None], "pos": torch.full(
+                        (LM_BATCH,), LM_PROMPT + i, dtype=torch.int32,
+                        device=dev)})
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kern = [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    kern.sort(key=lambda ev: -ev.self_device_time_total)
+    dev_ms = sum(ev.self_device_time_total for ev in kern) / 1e3
+    n_kern = sum(ev.count for ev in kern)
+    top = [{"name": ev.key[:70], "calls": ev.count,
+            "ms": ev.self_device_time_total / 1e3} for ev in kern[:6]]
+    log(f"[lm] decode profile ({steps} steps, batch {LM_BATCH}, context "
+        f"{LM_PROMPT}): wall {wall / steps * 1e3:.2f} ms/step under the "
+        f"profiler, device {dev_ms / steps:.3f} ms/step (busy "
+        f"{dev_ms / (wall * 1e3):.1%}), {n_kern / steps:.0f} kernels/step")
+    for t in top:
+        log(f"[lm]   {t['ms'] / steps:.3f} ms/step x{t['calls'] // steps}"
+            f"  {t['name']}")
+    return {"wall_ms_per_step": wall / steps * 1e3,
+            "device_ms_per_step": dev_ms / steps,
+            "busy": dev_ms / (wall * 1e3), "kernels_per_step": n_kern / steps,
+            "top": top}
+
+
+def lm_consistency(torch, np, model, tag: str, bound: float) -> dict:
+    """Batch 1, a 6,144-token prompt: prefill, then decode token 6,144,
+    held against ``forward`` over 6,145 tokens at the last position."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import decode_fn, init_cache, prefill_fn
+
+    cfg, dev = model.cfg, model.device
+    T = LM_PROMPT + 1
+    toks = _on(torch, np, launch_serve.prompts(cfg, 1, T, seed=1), dev)
+    toks = toks["tokens"]
+    with torch.inference_mode():
+        want, _, _ = model({"tokens": toks}, last_only=True)
+        cache = init_cache(cfg, 1, T, device=dev, dtype=model.dtype)
+        _, cache = prefill_fn(with_cache=True)(
+            model, cache, {"tokens": toks[:, :LM_PROMPT]})
+        got, cache = decode_fn()(model, cache, {
+            "token": toks[:, LM_PROMPT:], "pos": torch.full(
+                (1,), LM_PROMPT, dtype=torch.int32, device=dev)})
+        wrapped = [int(c["pos"].max()) for c in cache if "pos" in c]
+        e = _lm_err(np, got, want[:, -1])
+    slot = LM_PROMPT % cfg.window
+    log(f"[lm] decode consistency {tag}: token {LM_PROMPT} (local ring "
+        f"slot {slot} of {cfg.window}; newest ring position "
+        f"{max(wrapped)}) against forward over {T}: max rel err {e:.3e} "
+        f"(bound {bound:g})")
+    if not (e < bound and wrapped and min(wrapped) == LM_PROMPT):
+        fail(f"lm decode consistency {tag}: {e:.3e}, ring {wrapped}")
+    return {"err": e, "bound": bound, "ring_slot": slot}
+
+
+def lm_engine(torch, np, model) -> dict:
+    """``ServeEngine`` at full width: 8 requests with heavy-tailed prompt
+    lengths in [256, 4096] and ``max_new`` in [16, 64], ``max_batch=4``
+    (two gangs); each request gets its ``max_new`` tokens."""
+    from repro_torch.serve import ServeEngine
+
+    rng = np.random.default_rng(18)
+    lens = np.clip((256 * (1.0 + rng.pareto(1.2, 8))).astype(int), 256, 4096)
+    max_new = rng.integers(16, 65, 8)
+    eng = ServeEngine(model, max_batch=4, device=model.device)
+    for n, m in zip(lens, max_new):
+        eng.submit(rng.integers(0, model.cfg.vocab, int(n)), max_new=int(m))
+    stats = eng.run()
+    got = [len(eng.completed[r].tokens) for r in range(8)]
+    log(f"[lm] ServeEngine {model.cfg.name} bf16: prompt lengths "
+        f"{lens.tolist()}, max_new {max_new.tolist()}; requests "
+        f"{stats['requests']}, tokens {stats['tokens']}, "
+        f"{stats['tok_per_s']:.1f} tok/s, wall {stats['wall_s']:.3f} s, "
+        f"mean TTFT {stats['mean_ttft_s'] * 1e3:.1f} ms")
+    if got != max_new.tolist() or stats["requests"] != 8:
+        fail(f"lm ServeEngine: tokens per request {got} != {max_new}")
+    return {"prompt_lens": lens.tolist(), "max_new": max_new.tolist(),
+            **stats}
+
+
+def lm_batched_vs_sequential(torch, np, model) -> dict:
+    """f32: two equal-length prompts prefilled as one batch give the
+    first-token logits of two single-prompt prefills; then the engine's
+    tokens for both, batched and sequential (printed, not held: random
+    weights over 256,000 logits can flip an argmax on a near tie)."""
+    from repro_torch.models import init_cache, prefill_fn
+    from repro_torch.serve import ServeEngine
+
+    cfg, dev = model.cfg, model.device
+    rng = np.random.default_rng(19)
+    prompts = rng.integers(0, cfg.vocab, (2, 1024)).astype(np.int32)
+    with torch.inference_mode():
+        def first_logits(p):
+            cache = init_cache(cfg, len(p), len(p[0]) + 1, device=dev,
+                               dtype=model.dtype)
+            lg, _ = prefill_fn(with_cache=True)(
+                model, cache, {"tokens": torch.from_numpy(p).to(dev)})
+            return lg
+        batched = first_logits(prompts)
+        seq = torch.cat([first_logits(prompts[i:i + 1]) for i in range(2)])
+        e = _lm_err(np, batched, seq)
+    toks = []
+    for mb in (2, 1):
+        eng = ServeEngine(model, max_batch=mb, device=dev)
+        for p in prompts:
+            eng.submit(p, max_new=8)
+        eng.run()
+        toks.append([eng.completed[r].tokens for r in range(2)])
+    log(f"[lm] batched vs sequential f32: first-token logits max rel err "
+        f"{e:.3e} (bound {RTOL_LM_DECODE:g}); tokens batched {toks[0]}, "
+        f"sequential {toks[1]}")
+    if not e < RTOL_LM_DECODE:
+        fail(f"lm batched vs sequential: {e:.3e}")
+    return {"err": e, "tokens_equal": toks[0] == toks[1]}
+
+
+def phase_lm(torch, np) -> dict:
+    """The LM substrate on the card (no TPU kernel; plain torch ops):
+    ten smoke architectures against the CPU; gemma2-2b at full width
+    through ``launch.serve``'s path in bf16; decode consistency at 6,144
+    tokens in f32 and bf16; ``ServeEngine`` with 8 requests in two gangs;
+    batched against sequential first-token logits in f32.  The phase sets
+    ``allow_bf16_reduced_precision_reduction = False`` (bf16 matmuls
+    reduce in f32, as the reference's products accumulate); TF32 is off
+    for the whole script."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import LM
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device(DEVICE)
+    fns = _kernel_fns()
+    _reset(*fns.values())
+    out = {"smoke": lm_smoke(torch, np, dev)}
+
+    cfg = get_config(LM_ARCH)
+    model = LM(cfg, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    launch_serve.generate(model, launch_serve.prompts(cfg, LM_BATCH, 64), 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = launch_serve.generate(
+        model, launch_serve.prompts(cfg, LM_BATCH, LM_PROMPT), LM_GEN)
+    peak = torch.cuda.max_memory_allocated()
+    dec_ms = sorted(s * 1e3 for s in res["decode_s"])
+    p50 = statistics.median(dec_ms)
+    log(f"[lm] {cfg.name} full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}) bf16: {n_params:,} parameters, "
+        f"{w_bytes / 1e9:.3f} GB of weights; batch {LM_BATCH}, prompt "
+        f"{LM_PROMPT}, gen {LM_GEN}: prefill {res['prefill_s'] * 1e3:.1f} "
+        f"ms, decode p50 {p50:.2f} ms/step (min {dec_ms[0]:.2f}, max "
+        f"{dec_ms[-1]:.2f}; weight-read bound {w_bytes / PEAK_BYTES_S * 1e3:.3f}"
+        f" ms), {res['tok_per_s']:.1f} tok/s over {res['wall_s']:.3f} s; "
+        f"peak memory {peak / 1e9:.3f} GB; logits finite {res['finite']}")
+    if not res["finite"] or res["tokens"].shape != (LM_BATCH, LM_GEN):
+        fail(f"lm full width: finite={res['finite']}, tokens "
+             f"{res['tokens'].shape}")
+    out["full"] = {"arch": cfg.name, "params": n_params,
+                   "weight_bytes": w_bytes, "peak_bytes": peak,
+                   "prefill_ms": res["prefill_s"] * 1e3,
+                   "decode_ms_p50": p50, "tok_per_s": res["tok_per_s"],
+                   "wall_s": res["wall_s"]}
+    out["decode_profile"] = lm_decode_profile(torch, np, model)
+    out["consistency_bf16"] = lm_consistency(torch, np, model, "bf16",
+                                             RTOL_LM_BF16)
+    out["engine"] = lm_engine(torch, np, model)
+
+    model32 = LM(cfg, device="meta", dtype="float32").to_empty(device=dev)
+    with torch.no_grad():
+        for p32, p16 in zip(model32.parameters(), model.parameters()):
+            p32.copy_(p16)
+    del model
+    torch.cuda.empty_cache()
+    out["consistency_f32"] = lm_consistency(torch, np, model32, "f32",
+                                            RTOL_LM_DECODE)
+    out["batched_f32"] = lm_batched_vs_sequential(torch, np, model32)
+    del model32
+    torch.cuda.empty_cache()
+    out["launches"] = _launches()
+    log(f"[lm] kernel launches over the phase (none on this path): "
+        f"{out['launches']}")
+    return out
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -2098,6 +2441,9 @@ def main() -> None:
     t_phase = time.perf_counter()
     serve_res = phase_serve(torch, np)
     log(f"[serve] phase wall {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    lm_res = phase_lm(torch, np)
+    log(f"[lm] phase wall {time.perf_counter() - t_phase:.1f} s")
     check = next(c for c in kernels["hamlet_propagate"]["checks"]
                  if c["case"] == "solved rows in global memory")
     log(f"[baselines] the masked kernel's global-memory variant: (1, "
@@ -2115,6 +2461,7 @@ def main() -> None:
         e["main_path"] = main_res["shapes"][name]
         e["shards_launches"] = shards_res["launches"][name]
         e["serve_launches"] = serve_res["launches"][name]
+        e["lm_launches"] = lm_res["launches"][name]
     hp = kernels["hamlet_propagate"]
     hp["greta"] = dict(base_res["greta_shape"],
                        launches=base_res["launches"])
@@ -2124,7 +2471,8 @@ def main() -> None:
                       "baselines": {k: base_res[k] for k in
                                     ("finite_cut", "large_finite", "paper")},
                       "obs": obs_res, "stream": stream_res,
-                      "shards": shards_res, "serve": serve_res},
+                      "shards": shards_res, "serve": serve_res,
+                      "lm": lm_res},
                      default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

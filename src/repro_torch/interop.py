@@ -15,6 +15,13 @@ value)`` triples), ``edge_preds`` (type -> ``(attr, op)`` pairs),
 ``("type", name)``, ``("kleene", p)``, ``("not", p)``, ``("seq", (p, ...))``,
 ``("or", p, q)`` or ``("and", p, q)``.
 
+Model weights cross as a tree of numpy arrays laid out like the JAX
+package's ``init_params`` tree (nested dicts and tuples, the scanned cycle
+groups stacked on a leading axis): :func:`lm_state_from` names every leaf
+as the port's ``LM`` names its parameter, and :func:`lm_params_from`
+builds the port's model from it (:func:`tree_state` and
+:func:`load_state` do the same for one block's tree and module).
+
 What crosses a process or a socket as a pickle holds builtins and numpy
 only — the wire protocol's HELLO and END frames, whose reader may be the
 JAX package's client or server, and the replies of a process-mode shard
@@ -35,6 +42,7 @@ from .core.query import Agg, EdgePred, Pred, Query, Workload
 
 __all__ = ["schema_from", "batch_from", "stream_columns", "pattern_spec",
            "pattern_from", "workload_spec", "workload_from",
+           "tree_state", "load_state", "lm_state_from", "lm_params_from",
            "plain_loads"]
 
 _UNARY = {"kleene": Kleene, "not": Not}
@@ -127,6 +135,91 @@ def workload_from(spec: dict) -> Workload:
         for q in spec["queries"]]
     return Workload(schema, queries,
                     sharable_mode=spec.get("sharable_mode", "units"))
+
+
+def _leaves(tree, prefix: str):
+    """(dotted name, leaf) pairs of a tree of dicts, tuples and arrays."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}.")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def lm_state_from(cfg, tree: dict) -> dict:
+    """The port's parameter names -> arrays of a JAX ``init_params`` tree:
+    the cycle groups unstacked in layer order (layer ``g * len(cycle) +
+    ci`` is ``tree["scan"][ci]``'s slice g), then the tail, the shared
+    block and the encoder's stacked layers."""
+    cyc, n_groups, _ = cfg.layer_plan()
+    out = {}
+    for key in ("embed", "final_norm", "lm_head"):
+        if key in tree:
+            out[key] = tree[key]
+    for ci, group in enumerate(tree["scan"]):
+        for name, a in _leaves(group, ""):
+            for g in range(n_groups):
+                out[f"layers.{g * len(cyc) + ci}.{name}"] = a[g]
+    for i, layer in enumerate(tree["tail"]):
+        for name, a in _leaves(layer, ""):
+            out[f"layers.{n_groups * len(cyc) + i}.{name}"] = a
+    if "shared_block" in tree:
+        for name, a in _leaves(tree["shared_block"], "shared_block."):
+            out[name] = a
+    if "enc" in tree:
+        for name, a in _leaves(tree["enc"]["scan"], ""):
+            for g in range(cfg.n_enc_layers):
+                out[f"enc.layers.{g}.{name}"] = a[g]
+        out["enc.final_norm"] = tree["enc"]["final_norm"]
+    return out
+
+
+def tree_state(tree) -> dict:
+    """Dotted name -> leaf of a nested tree of dicts, tuples and arrays
+    (the parameter names of the module laid out like it)."""
+    return dict(_leaves(tree, ""))
+
+
+def load_state(module, state: dict):
+    """Copy ``state`` (parameter name -> numpy array) into ``module``'s
+    parameters, each cast to its parameter's type; the names must be
+    exactly the module's.  Give bf16 weights as float32 arrays (exact); an
+    ``ml_dtypes`` bfloat16 array is widened.  Returns ``module``."""
+    import torch
+
+    params = dict(module.named_parameters())
+    if state.keys() != params.keys():
+        raise ValueError(
+            f"state and module differ: missing "
+            f"{sorted(params.keys() - state.keys())}, extra "
+            f"{sorted(state.keys() - params.keys())}")
+    with torch.no_grad():
+        for name, a in state.items():
+            a = np.asarray(a)
+            if a.dtype.name == "bfloat16":
+                a = a.astype(np.float32)
+            p = params[name]
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {a.shape} != "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.tensor(a))
+    return module
+
+
+def lm_params_from(cfg, tree: dict, *, dtype=None, device=None):
+    """The port's ``LM`` with the weights of a JAX ``init_params`` tree of
+    numpy arrays (:func:`lm_state_from`, :func:`load_state`), each cast to
+    its parameter's type (``dtype``, default the config's; float32 leaves
+    stay float32).  ``device`` defaults to ``cuda:0`` and raises without a
+    GPU."""
+    from .models.lm import LM, resolve_device
+
+    dev = resolve_device(device)
+    model = LM(cfg, device="meta", dtype=dtype).to_empty(device=dev)
+    return load_state(model, lm_state_from(cfg, tree))
 
 
 # the top-level modules whose classes a plain pickle may name

@@ -1,0 +1,173 @@
+"""Mamba2 / SSD block (arXiv:2405.21060).
+
+The port of ``repro.models.mamba2``.  State-space recurrence per head h
+with scalar decay:
+
+    S_t = a_t * S_{t-1} + (dt_t x_t) (x) B_t          S in R^{hd x state}
+    y_t = C_t . S_t + D * x_t,   a_t = exp(-exp(A) dt_t)
+
+Prefill uses the chunked (SSD) form: within a chunk of length L the
+recurrence unrolls into causal matmuls via cumulative log-decays, and the
+state is carried across chunks by a loop.  Decode is the single-step
+recurrence.  In bf16 the intra-chunk transition ``M`` is formed in bf16 and
+multiplied with float32 accumulation (both operands upcast, exact), as the
+reference's ``preferred_element_type`` product does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import normal_, rms_norm
+
+__all__ = ["Mamba2", "mamba2_block", "mamba2_decode", "init_mamba2_state"]
+
+# the reference's chunk length (its choice is a TPU memory trade-off; the
+# port keeps it so that chunk boundaries, and the T % L rule, are the same)
+CHUNK = 128
+
+
+class Mamba2(nn.Module):
+    """``init_mamba2``: ``in_proj`` (z, x, B, C, dt), the depthwise
+    ``conv_w``, float32 ``A_log``/``D``/``dt_bias``, the gate ``norm`` and
+    ``out_proj``."""
+
+    def __init__(self, cfg, dtype, device, gen=None):
+        super().__init__()
+        d, din = cfg.d_model, cfg.d_inner
+        H = cfg.ssm_heads
+        st = cfg.ssm_state
+        si = 1.0 / math.sqrt(d)
+        f32 = torch.float32
+        self.in_proj = nn.Parameter(normal_(gen, (d, 2 * din + 2 * st + H),
+                                            si, dtype, device))
+        self.conv_w = nn.Parameter(normal_(gen, (cfg.ssm_conv, din),
+                                           1.0 / math.sqrt(cfg.ssm_conv),
+                                           dtype, device))
+        self.A_log = nn.Parameter(torch.log(torch.linspace(
+            1.0, float(max(2, H)), H, dtype=f32, device=device)))
+        self.D = nn.Parameter(torch.ones(H, dtype=f32, device=device))
+        self.dt_bias = nn.Parameter(torch.zeros(H, dtype=f32, device=device))
+        self.norm = nn.Parameter(torch.zeros(din, dtype=dtype, device=device))
+        self.out_proj = nn.Parameter(normal_(gen, (din, d),
+                                             1.0 / math.sqrt(din), dtype,
+                                             device))
+
+
+def _split_proj(p: Mamba2, u, cfg):
+    din, st = cfg.d_inner, cfg.ssm_state
+    z, x, Bm, Cm, dt = torch.split(u @ p.in_proj,
+                                   [din, din, st, st, cfg.ssm_heads], dim=-1)
+    dt = F.softplus(dt.float() + p.dt_bias)
+    return z, x, Bm, Cm, dt
+
+
+def _causal_conv(x, w, state=None):
+    """Depthwise causal conv; x [B, T, din], w [K, din].
+    With ``state`` [B, K-1, din] performs the incremental step (the
+    concatenation promotes to the wider of the two types, as the
+    reference's does)."""
+    K = w.shape[0]
+    if state is not None:
+        xa = torch.cat([state, x], dim=1)                  # [B, K-1+T, din]
+        new_state = xa[:, -(K - 1):, :] if K > 1 else state
+    else:
+        xa = F.pad(x, (0, 0, K - 1, 0))
+        new_state = xa[:, -(K - 1):, :] if K > 1 else None
+    T = x.shape[1]
+    out = xa[:, 0:T, :] * w[0]
+    for i in range(1, K):
+        out = out + xa[:, i:i + T, :] * w[i]
+    return F.silu(out), new_state
+
+
+def _ssd_chunked(xh, Bm, Cm, dt, A_log, S0):
+    """Chunked SSD scan.
+
+    xh [B, T, H, hd]; Bm/Cm [B, T, st]; dt [B, T, H]; S0 [B, H, hd, st].
+    Returns (y [B, T, H, hd], S_final)."""
+    Bsz, T, H, hd = xh.shape
+    L = min(CHUNK, T)
+    assert T % L == 0, (T, L)
+    nC = T // L
+
+    loga = (-torch.exp(A_log)[None, :, None] *
+            dt.transpose(1, 2).float())                     # [B, H, T]
+    u = xh * dt[..., None].to(xh.dtype)                     # dt-weighted
+    m_dtype = xh.dtype if xh.dtype == torch.bfloat16 else torch.float32
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                   device=xh.device))
+
+    S = S0.float()
+    ys = []
+    for c in range(nC):
+        sl = slice(c * L, (c + 1) * L)
+        u_c, B_c, C_c, la_c = u[:, sl], Bm[:, sl], Cm[:, sl], loga[..., sl]
+        l = torch.cumsum(la_c, dim=-1)                      # [B, H, L]
+        # intra-chunk: M[t, j] = (C_t . B_j) exp(l_t - l_j), j <= t
+        cb = torch.einsum("bts,bjs->btj", C_c.float(), B_c.float())
+        dec = torch.exp(l[..., :, None] - l[..., None, :])  # [B, H, L, L]
+        M = torch.where(causal, cb[:, None] * dec, 0.0).to(m_dtype)
+        y = torch.einsum("bhtj,bjhp->bthp", M.float(),
+                         u_c.to(m_dtype).float())
+        # inter-chunk: y_t += exp(l_t) * (S0 @ C_t)
+        y = y + torch.einsum("bht,bhps,bts->bthp", torch.exp(l), S,
+                             C_c.float())
+        # state update: S' = exp(l_L) S + sum_j exp(l_L - l_j) u_j (x) B_j
+        w = torch.exp(l[..., -1:] - l)                      # [B, H, L]
+        S = (S * torch.exp(l[..., -1])[..., None, None] +
+             torch.einsum("bhj,bjhp,bjs->bhps", w, u_c.float(), B_c.float()))
+        ys.append(y)
+    y = torch.cat(ys, dim=1)
+    return y.to(xh.dtype), S
+
+
+def mamba2_block(p: Mamba2, u: torch.Tensor, cfg, state=None,
+                 conv_state=None):
+    """Full-sequence Mamba2 block. u [B, T, d] -> (y, (S, conv_state))."""
+    B, T, d = u.shape
+    H, st = cfg.ssm_heads, cfg.ssm_state
+    hd = cfg.d_inner // H
+    z, x, Bm, Cm, dt = _split_proj(p, u, cfg)
+    x, conv_state = _causal_conv(x, p.conv_w, conv_state)
+    xh = x.reshape(B, T, H, hd)
+    S0 = (torch.zeros((B, H, hd, st), dtype=torch.float32, device=u.device)
+          if state is None else state)
+    y, S = _ssd_chunked(xh, Bm, Cm, dt, p.A_log, S0)
+    y = y + xh.float() * p.D[None, None, :, None]
+    y = y.reshape(B, T, cfg.d_inner).to(u.dtype)
+    y = rms_norm(y, p.norm, cfg.norm_eps) * F.silu(z)
+    return y @ p.out_proj, (S, conv_state)
+
+
+def init_mamba2_state(cfg, batch: int, device=None):
+    H, st = cfg.ssm_heads, cfg.ssm_state
+    hd = cfg.d_inner // H
+    f32 = torch.float32
+    return (torch.zeros((batch, H, hd, st), dtype=f32, device=device),
+            torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner), dtype=f32,
+                        device=device))
+
+
+def mamba2_decode(p: Mamba2, u: torch.Tensor, cfg, state, conv_state):
+    """Single-step recurrence. u [B, 1, d]."""
+    B, _, d = u.shape
+    H = cfg.ssm_heads
+    hd = cfg.d_inner // H
+    z, x, Bm, Cm, dt = _split_proj(p, u, cfg)
+    x, conv_state = _causal_conv(x, p.conv_w, conv_state.to(x.dtype))
+    xh = x.reshape(B, H, hd)
+    dt1 = dt[:, 0]                                          # [B, H]
+    a = torch.exp(-torch.exp(p.A_log)[None] * dt1)          # [B, H]
+    upd = torch.einsum("bhp,bs->bhps", xh.float() * dt1[..., None],
+                       Bm[:, 0].float())
+    S = state * a[..., None, None] + upd
+    y = torch.einsum("bhps,bs->bhp", S, Cm[:, 0].float())
+    y = y + xh.float() * p.D[None, :, None]
+    y = y.reshape(B, 1, cfg.d_inner).to(u.dtype)
+    y = rms_norm(y, p.norm, cfg.norm_eps) * F.silu(z)
+    return y @ p.out_proj, (S, conv_state)

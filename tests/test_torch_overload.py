@@ -19,6 +19,7 @@ port on ``backend="torch", device="cpu"`` (the kernels' plain versions).
 """
 
 import dataclasses
+import itertools
 import math
 
 import numpy as np
@@ -439,14 +440,27 @@ def _overload_run(pk, wl, batch, t_end, cfg, **kw):
     return res, ort, plans
 
 
-def _held_against_reference(wl, batch, t_end, cfg, **kw):
+def stepped_clock(step_s: float = 1e-3):
+    """A deterministic clock that advances ``step_s`` on every read.  The
+    live controller then sees the same pane times in every run, whatever
+    the host's load; a fresh one for each run gives each the same reads."""
+    reads = itertools.count()
+    return lambda: next(reads) * step_s
+
+
+def _held_against_reference(wl, batch, t_end, cfg, make_clock=None, **kw):
     """Run the scenario on the reference and on both port backends; hold
     shed plans, per-pane counts and the accountant bitwise, windows as the
-    module docstring says.  Returns the port runs."""
-    want, ref, ref_plans = _overload_run(REF, wl, batch, t_end, cfg, **kw)
+    module docstring says.  ``make_clock`` (e.g. :func:`stepped_clock`)
+    gives each run its own clock.  Returns the port runs."""
+    def run(pk):
+        clock = {} if make_clock is None else {"clock": make_clock()}
+        return _overload_run(pk, wl, batch, t_end, cfg, **kw, **clock)
+
+    want, ref, ref_plans = run(REF)
     runs = []
     for pk in PORTS:
-        got, ort, plans = _overload_run(pk, wl, batch, t_end, cfg, **kw)
+        got, ort, plans = run(pk)
         tag = (pk.backend, cfg)
         assert plans == ref_plans, tag
         assert metrics_state(ort.metrics) == metrics_state(ref.metrics), tag
@@ -461,7 +475,8 @@ def test_runtime_without_shedding_matches_batch_engine():
     wl = _wl()
     batch = _stream(n=150, t_max=40, seed=9, groups=3)
     want, _, runs = _held_against_reference(wl, batch, 40,
-                                            {"shed_policy": "none"})
+                                            {"shed_policy": "none"},
+                                            make_clock=stepped_clock)
     assert want == RefRuntime(wl).run(batch, t_end=40)
     for pk, (got, ort) in zip(PORTS, runs):
         batch_run = pk.runtime(wl).run(pk.batch(batch), t_end=40)
@@ -491,7 +506,8 @@ def test_runtime_routes_stale_arrivals_to_accountant():
     batch = _stream(n=120, t_max=40, seed=20)
     states = []
     for pk in [REF] + PORTS:
-        ort = pk.overload(wl, {"shed_policy": "none"})
+        ort = pk.overload(wl, {"shed_policy": "none"},
+                          clock=stepped_clock())
         ort.offer(pk.batch(batch.time_slice(0, 20)))
         for _ in range(4):
             ort.step_pane()
@@ -511,7 +527,8 @@ def test_runtime_admission_cap_bounds_pane_work():
     wl = _wl()
     batch = _stream(n=300, t_max=40, seed=11)
     _, _, runs = _held_against_reference(
-        wl, batch, 40, {"shed_policy": "drop_tail", "pane_budget_events": 10})
+        wl, batch, 40, {"shed_policy": "drop_tail", "pane_budget_events": 10},
+        make_clock=stepped_clock)
     for _, ort in runs:
         assert all(p.admitted <= 10 for p in ort.metrics.panes)
 

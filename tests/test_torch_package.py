@@ -2,7 +2,8 @@
 
 * every ``repro_torch`` module imports without JAX and without the JAX
   package (checked in a fresh interpreter, where nothing else has imported
-  them);
+  them), the LM substrate (configs, models, token engine, serve launcher)
+  included;
 * without a CUDA device the default entry points raise instead of
   running on the CPU, and ``chip_smoke.py`` exits non-zero, printing no
   result — in the checkout and alone in a directory;
@@ -69,14 +70,21 @@ for pkg, mods in (("overload", ("config", "controller", "ingress", "shedding",
                   ("serve", ("session", "scheduler", "frontend",
                              "transport")),
                   ("distributed", ("sharding",)),
-                  ("launch", ("fig_shard_scale",))):
+                  ("launch", ("fig_shard_scale", "serve")),
+                  ("configs", ("base", "gemma2_2b", "gemma3_4b",
+                               "h2o_danube_1p8b", "starcoder2_15b",
+                               "olmoe_1b_7b", "llama4_maverick",
+                               "qwen2_vl_7b", "whisper_tiny", "zamba2_7b",
+                               "rwkv6_7b")),
+                  ("models", ("layers", "moe", "mamba2", "rwkv6", "lm")),
+                  ("serve", ("engine",))):
     for m in mods:
         assert f"repro_torch.{pkg}.{m}" in names, (pkg, m)
 """
     r = _run(["-c", code])
     assert r.returncode == 0, r.stderr
     n = int(r.stdout.split()[0])
-    assert n >= 49, r.stdout
+    assert n >= 69, r.stdout
 
 
 def test_streaming_layers_import_without_jax_or_repro():
@@ -104,6 +112,34 @@ print("ok")
     r = _run(["-c", code])
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_lm_substrate_imports_without_jax_or_repro():
+    """The configs, models, token serving engine and serve launcher import
+    in an interpreter where ``jax`` and ``repro`` cannot be imported, and
+    the launcher runs a smoke model there on the CPU."""
+    code = """
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"):
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, Block())
+from repro_torch.configs import ARCHS, get_config, reduce_for_smoke
+from repro_torch.models import LM, init_cache, prefill_fn, decode_fn
+from repro_torch.serve import ServeEngine, Request
+from repro_torch.interop import lm_params_from
+from repro_torch.launch import serve
+assert len(ARCHS) == 10 and all(get_config(a).name for a in ARCHS)
+res = serve.main(["--arch", "rwkv6-7b", "--smoke", "--device", "cpu",
+                  "--batch", "1", "--prompt-len", "8", "--gen", "2"])
+assert res["finite"]
+print("ok")
+"""
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "ok"
 
 
 @pytest.mark.parametrize("entry", ["HamletService", "OverloadRuntime",
