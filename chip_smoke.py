@@ -115,6 +115,21 @@ Phases, in order; a failure in any of them exits non-zero:
               (2e-3); ``ServeEngine`` with 8 heavy-tailed requests in two
               gangs; batched against sequential first-token logits in f32.
               Sets ``allow_bf16_reduced_precision_reduction = False``.
+12. train   — the LM substrate's training path (``models.lm``'s loss and
+              train step, ``train/``, ``distributed/checkpoint.py``; plain
+              torch ops and autograd, no TPU kernel): the ten smoke
+              architectures in f32 on the card against the CPU (loss rel
+              1e-5; gradients, and AdamW fed the CPU's gradients, within
+              1e-4 of each leaf's max abs, zamba2's gradients 5e-4, as in
+              tests/test_torch_train.py; a second step through
+              ``train_step_fn``, its loss held); ``run_training`` at
+              gemma2-2b's smoke size on the card, 12 steps, a crash at
+              step 9 and a resume from step 8, bitwise equal to the
+              uninterrupted run; gemma2-2b at full width in bf16 with f32
+              AdamW moments, batch 2 x 5,120, one warm-up and five timed
+              steps (step ms, tokens/s, peak memory, every loss, the
+              global gradient norm, all finite; the bf16 and f32 FLOPs of
+              a step at the data sheet's peaks as its bound).
 
 Each path's kernel launches are counted from zero just before it runs; a
 path that should launch a kernel and did not fails the run.
@@ -2411,6 +2426,329 @@ def phase_lm(torch, np) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# LM training: models.lm's loss and train step, train/, distributed/checkpoint
+# --------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 2, 5_120
+# 5,120 = 10 CE and attention chunks of 512, > window + 512 (4,608): the
+# banded local attention runs in the forward, its recompute and backward
+TRAIN_STEPS = 5         # timed steps at full width, after one warm-up
+TRAIN_LR = 1e-3
+RTOL_TRAIN_LOSS = 1e-5  # f32 smoke loss, card against the CPU
+RTOL_TRAIN_GRAD = 1e-4  # f32 smoke gradients and updated parameters, card
+                        # against the CPU, of the leaf's max abs
+RTOL_TRAIN_GRAD_ZAMBA2 = 5e-4   # zamba2's gradients: its random Mamba2
+                        # stack is ill-conditioned (the reference's own
+                        # A_log gradient moves 1.46e-4 under a 1e-7 weight
+                        # perturbation; tests/test_torch_train.py's bound)
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
+PEAK_F32_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores
+
+
+def _train_batch(np, cfg, key: int = 0) -> dict:
+    """tests/test_models_smoke.py's ``_batch_for`` inputs, B 2, S 16."""
+    B, S = 2, 16
+    rng = np.random.default_rng(key)
+    b = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+         "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.enc_dec:
+        b["frames"] = rng.standard_normal((B, S, cfg.d_model)
+                                          ).astype(np.float32)
+    if cfg.frontend == "patches":
+        b["patch_embeds"] = rng.standard_normal((B, 4, cfg.d_model)
+                                                ).astype(np.float32)
+        b["tokens"] = b["tokens"][:, :S - 4]
+    if cfg.mrope_sections:
+        b["positions"] = np.broadcast_to(np.arange(S), (3, B, S)
+                                         ).astype(np.int32)
+    return b
+
+
+def _loss_grads(torch, model, batch):
+    from repro_torch.models.lm import loss_fn
+
+    names, params = zip(*model.named_parameters())
+    loss = loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, params, materialize_grads=True)
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def _leaf_errs(np, got: dict, want: dict) -> dict:
+    """max |got - want| over the leaf's max |want|, leaf by leaf."""
+    out = {}
+    for n, w in want.items():
+        w = w.detach().float().cpu().numpy()
+        g = got[n].detach().float().cpu().numpy()
+        out[n] = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+    return out
+
+
+def train_smoke(torch, np, dev) -> dict:
+    """All ten architectures at ``reduce_for_smoke`` size in f32, the same
+    weights on the card and on the CPU: the loss and every gradient; then
+    AdamW on the card fed the CPU's gradients against AdamW on the CPU
+    (updated parameters); then ``train_step_fn`` on both (the loss held;
+    the updated parameters' largest difference printed: where a gradient
+    element is near 0 its sign, and so a step of ``lr``, may differ)."""
+    import copy
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS, get_config, reduce_for_smoke
+    from repro_torch.models import LM, train_step_fn
+    from repro_torch.train import AdamW
+
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in ARCHS:
+        cfg = replace(reduce_for_smoke(get_config(arch)), dtype="float32")
+        host = LM(cfg, device=cpu, seed=0)
+        card = copy.deepcopy(host).to(dev)
+        batch = _train_batch(np, cfg)
+        bh, bc = _on(torch, np, batch, cpu), _on(torch, np, batch, dev)
+        lh, gh = _loss_grads(torch, host, bh)
+        lc, gc = _loss_grads(torch, card, bc)
+        e_loss = abs(lc - lh) / abs(lh)
+        errs = _leaf_errs(np, gc, gh)
+        g_worst = max(errs, key=errs.get)
+
+        opt = AdamW(lr=TRAIN_LR)
+        ph, pc = dict(host.named_parameters()), dict(card.named_parameters())
+        sh, sc = opt.init(ph), opt.init(pc)
+        opt.update(ph, gh, sh)
+        opt.update(pc, {n: g.to(dev) for n, g in gh.items()}, sc)
+        uerrs = _leaf_errs(np, pc, ph)
+        u_worst = max(uerrs, key=uerrs.get)
+
+        step = train_step_fn(opt)
+        l2h = float(step(host, sh, bh))
+        l2c = float(step(card, sc, bc))
+        torch.cuda.synchronize()
+        e_loss2 = abs(l2c - l2h) / abs(l2h)
+        g_bound = (RTOL_TRAIN_GRAD_ZAMBA2 if arch == "zamba2-7b"
+                   else RTOL_TRAIN_GRAD)
+        serrs = _leaf_errs(np, pc, ph)
+        s_worst = max(serrs, key=serrs.get)
+        log(f"[train] smoke {arch}: loss {lc:.6f} (card) {lh:.6f} (CPU) rel "
+            f"{e_loss:.3e}; gradients worst {errs[g_worst]:.3e} "
+            f"({g_worst}; bound {g_bound:g}); AdamW on the CPU's "
+            f"gradients worst {uerrs[u_worst]:.3e}; train_step_fn loss rel "
+            f"{e_loss2:.3e}, parameters worst {serrs[s_worst]:.3e} "
+            f"({s_worst}; printed, not held)")
+        if not (e_loss <= RTOL_TRAIN_LOSS and e_loss2 <= RTOL_TRAIN_LOSS
+                and errs[g_worst] <= g_bound
+                and uerrs[u_worst] <= RTOL_TRAIN_GRAD
+                and int(sc["step"]) == 2):
+            fail(f"train smoke {arch}: loss {e_loss:.3e}/{e_loss2:.3e}, "
+                 f"grad {errs[g_worst]:.3e}, update {uerrs[u_worst]:.3e}")
+        out[arch] = {"loss_err": e_loss, "grad_err": errs[g_worst],
+                     "update_err": uerrs[u_worst], "step_loss_err": e_loss2,
+                     "step_param_err": serrs[s_worst]}
+    return out
+
+
+def train_resume(torch, np, dev) -> dict:
+    """``run_training`` at gemma2-2b's ``reduce_for_smoke`` size (bf16) on
+    the card: 12 steps with a checkpoint every 4; then a run that crashes
+    at step 9 and its restart, which resumes from step 8.  The final
+    parameters and the overlapping losses must equal the uninterrupted
+    run's bit for bit."""
+    import shutil
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.train.trainer import (InjectedFailure, TrainLoopConfig,
+                                           run_training)
+
+    cfg = reduce_for_smoke(get_config(LM_ARCH))
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    loop = TrainLoopConfig(steps=12, batch=4, seq=32, lr=TRAIN_LR,
+                           ckpt_dir=str(root / "plain"), ckpt_interval=4)
+    t0 = time.perf_counter()
+    ref, ref_losses, _ = run_training(cfg, loop, device=DEVICE)
+    crash = replace(loop, ckpt_dir=str(root / "crash"), fail_at_step=9)
+    try:
+        run_training(cfg, crash, device=DEVICE)
+        fail("train resume: the injected failure did not fire")
+    except InjectedFailure:
+        pass
+    res, res_losses, resumed = run_training(
+        cfg, replace(crash, fail_at_step=None), device=DEVICE)
+    wall = time.perf_counter() - t0
+    same = [torch.equal(a, b) for a, b in zip(ref.parameters(),
+                                               res.parameters())]
+    log(f"[train] crash/resume {cfg.name} smoke ({cfg.dtype}) on the card: "
+        f"resumed from {resumed}; parameters bitwise {sum(same)}/"
+        f"{len(same)}; losses 8-11 bitwise {ref_losses[8:] == res_losses} "
+        f"({res_losses}); three runs {wall:.1f} s")
+    if resumed != 8 or not all(same) or ref_losses[8:] != res_losses:
+        fail(f"train crash/resume: resumed {resumed}, parameters "
+             f"{sum(same)}/{len(same)}, losses {ref_losses[8:]} vs "
+             f"{res_losses}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"resumed_from": resumed, "params_bitwise": sum(same),
+            "params": len(same), "losses": res_losses}
+
+
+def train_flops(cfg, B: int, S: int) -> dict:
+    """Operations of one train step of the port at full width, counted
+    from the shapes: bf16 products (the layers' linear maps: forward, the
+    group recompute and a backward of twice the forward; the LM head:
+    forward, its chunk recompute and backward) and float32 products
+    (attention's QK and PV on upcast operands, over the [chunk, T] slabs
+    the port computes: T for global layers, window + 512 for local ones;
+    the same four passes)."""
+    d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    n_tok = B * S
+    layer = (d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
+             + (3 if cfg.mlp_gated else 2) * d * ff)
+    lin = 2 * n_tok * layer * cfg.n_layers * 4
+    head = 2 * n_tok * d * cfg.vocab * 4
+    band = min(S, cfg.window + 512)
+    attn = 0
+    for kind in cfg.layer_kinds():
+        T = band if kind.startswith("local") and S > band else S
+        attn += 2 * 2 * B * cfg.n_heads * S * T * hd * 4
+    return {"bf16": lin + head, "f32": attn}
+
+
+def train_profile(torch, fn) -> dict:
+    """One call of ``fn`` (a train step) under ``torch.profiler``: wall,
+    device time and busy share, kernels launched, the share of device time
+    in matrix products (kernel names with gemm, xmma or nvjet) and the
+    costliest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    kern.sort(key=lambda ev: -ev.self_device_time_total)
+    dev_ms = sum(ev.self_device_time_total for ev in kern) / 1e3
+    mm_ms = sum(ev.self_device_time_total for ev in kern
+                if any(k in ev.key.lower() for k in ("gemm", "xmma",
+                                                     "nvjet"))) / 1e3
+    top = [{"name": ev.key[:70], "calls": ev.count,
+            "ms": ev.self_device_time_total / 1e3} for ev in kern[:8]]
+    n_kern = sum(ev.count for ev in kern)
+    log(f"[train] profiled step: wall {wall * 1e3:.1f} ms under the "
+        f"profiler, device {dev_ms:.1f} ms (busy {dev_ms / (wall * 1e3):.1%}"
+        f"), {n_kern} kernels; matrix products {mm_ms:.1f} ms "
+        f"({mm_ms / max(dev_ms, 1e-9):.1%} of device time)")
+    for t in top:
+        log(f"[train]   {t['ms']:.1f} ms x{t['calls']}  {t['name']}")
+    return {"wall_ms": wall * 1e3, "device_ms": dev_ms,
+            "busy": dev_ms / (wall * 1e3), "kernels": n_kern,
+            "matmul_ms": mm_ms, "top": top}
+
+
+def train_full(torch, np, dev) -> dict:
+    """gemma2-2b at full width and depth in bf16 with float32 AdamW
+    moments, lr 1e-3, ``SyntheticLM`` seed 0, batch 2 x 5,120: one warm-up
+    step, then ``TRAIN_STEPS`` steps each timed on the host clock with the
+    device synced, then one step under the profiler.  The global gradient
+    norm comes from AdamW's ``grad_transform`` hook; the losses, the norms
+    and every parameter after the last step must be finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM, train_step_fn
+    from repro_torch.train import AdamW
+    from repro_torch.train.data import SyntheticLM
+
+    norms = []
+
+    class GradNorm:
+        def apply(self, grads, state):
+            sq = torch.stack([g.float().square().sum()
+                              for g in grads.values()]).sum()
+            norms.append(sq.sqrt())
+            return grads, state
+
+    cfg = get_config(LM_ARCH)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = LM(cfg, device=dev, seed=0)
+    opt = AdamW(lr=TRAIN_LR, grad_transform=GradNorm())
+    state = opt.init(dict(model.named_parameters()))
+    step = train_step_fn(opt)
+    src = SyntheticLM(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    states = torch.cuda.memory_allocated() - base
+    losses, times = [], []
+    for i in range(TRAIN_STEPS + 1):
+        batch = _on(torch, np, src.batch_for_step(i), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(model, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated() - base
+    batch = _on(torch, np, src.batch_for_step(TRAIN_STEPS + 1), dev)
+    prof = train_profile(torch, lambda: losses.append(
+        float(step(model, state, batch))))
+    norms = [float(n) for n in norms]
+    finite = (all(math.isfinite(v) for v in losses + norms) and
+              all(bool(torch.isfinite(p).all()) for p in model.parameters()))
+    ms = sorted(t * 1e3 for t in times[1:])
+    med = statistics.median(ms)
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    bound = {"bf16": flops["bf16"] / PEAK_BF16_FLOPS * 1e3,
+             "f32": flops["f32"] / PEAK_F32_FLOPS * 1e3}
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (med / 1e3)
+    log(f"[train] {cfg.name} full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}) bf16, f32 AdamW moments: "
+        f"{n_params:,} parameters; batch {TRAIN_BATCH} x {TRAIN_SEQ}; "
+        f"warm-up step {times[0] * 1e3:.1f} ms; step p50 {med:.1f} ms (min "
+        f"{ms[0]:.1f}, max {ms[-1]:.1f}) over {TRAIN_STEPS}; "
+        f"{tok_s:.1f} tokens/s; weights and AdamW states "
+        f"{states / 1e9:.3f} GB, peak {peak / 1e9:.3f} GB "
+        f"(max_memory_allocated above the {base / 1e9:.3f} GB held before)")
+    log(f"[train] losses {[round(v, 6) for v in losses]}; global grad norm "
+        f"{[round(v, 6) for v in norms]}; all finite {finite}")
+    total = bound["bf16"] + bound["f32"]
+    log(f"[train] bound: {flops['bf16'] / 1e12:.1f} TFLOP bf16 at 989 "
+        f"TFLOP/s = {bound['bf16']:.1f} ms, {flops['f32'] / 1e12:.1f} TFLOP "
+        f"f32 at 67 TFLOP/s = {bound['f32']:.1f} ms; sum {total:.1f} ms "
+        f"({total / med:.1%} of the step)")
+    if not finite or len(norms) != TRAIN_STEPS + 2:
+        fail(f"train full width: finite={finite}, losses {losses}, "
+             f"norms {norms}")
+    del model, state
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "params": n_params, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "warmup_ms": times[0] * 1e3, "step_ms": ms,
+            "step_ms_p50": med, "tokens_per_s": tok_s,
+            "state_bytes": states, "peak_bytes": peak, "losses": losses,
+            "grad_norms": norms, "flops": flops, "bound_ms": bound,
+            "profile": prof}
+
+
+def phase_train(torch, np) -> dict:
+    """The LM substrate's training path on the card (no TPU kernel; plain
+    torch ops and autograd): ten smoke architectures against the CPU;
+    crash and resume of ``run_training`` bitwise at gemma2-2b's smoke
+    size; gemma2-2b at full width, batch 2 x 5,120.  Sets
+    ``allow_bf16_reduced_precision_reduction = False`` as the ``lm`` phase
+    does."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device(DEVICE)
+    fns = _kernel_fns()
+    _reset(*fns.values())
+    out = {"smoke": train_smoke(torch, np, dev),
+           "resume": train_resume(torch, np, dev),
+           "full": train_full(torch, np, dev)}
+    out["launches"] = _launches()
+    log(f"[train] kernel launches over the phase (none on this path): "
+        f"{out['launches']}")
+    return out
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -2444,6 +2782,9 @@ def main() -> None:
     t_phase = time.perf_counter()
     lm_res = phase_lm(torch, np)
     log(f"[lm] phase wall {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    train_res = phase_train(torch, np)
+    log(f"[train] phase wall {time.perf_counter() - t_phase:.1f} s")
     check = next(c for c in kernels["hamlet_propagate"]["checks"]
                  if c["case"] == "solved rows in global memory")
     log(f"[baselines] the masked kernel's global-memory variant: (1, "
@@ -2462,6 +2803,7 @@ def main() -> None:
         e["shards_launches"] = shards_res["launches"][name]
         e["serve_launches"] = serve_res["launches"][name]
         e["lm_launches"] = lm_res["launches"][name]
+        e["train_launches"] = train_res["launches"][name]
     hp = kernels["hamlet_propagate"]
     hp["greta"] = dict(base_res["greta_shape"],
                        launches=base_res["launches"])
@@ -2472,7 +2814,7 @@ def main() -> None:
                                     ("finite_cut", "large_finite", "paper")},
                       "obs": obs_res, "stream": stream_res,
                       "shards": shards_res, "serve": serve_res,
-                      "lm": lm_res},
+                      "lm": lm_res, "train": train_res},
                      default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,8 @@ groups stacked on a leading axis): :func:`lm_state_from` names every leaf
 as the port's ``LM`` names its parameter, and :func:`lm_params_from`
 builds the port's model from it (:func:`tree_state` and
 :func:`load_state` do the same for one block's tree and module).
+:func:`adamw_state_from` carries the reference AdamW's ``{"step", "m",
+"v"}`` state the same way, so a JAX training state continues in the port.
 
 What crosses a process or a socket as a pickle holds builtins and numpy
 only — the wire protocol's HELLO and END frames, whose reader may be the
@@ -43,7 +45,7 @@ from .core.query import Agg, EdgePred, Pred, Query, Workload
 __all__ = ["schema_from", "batch_from", "stream_columns", "pattern_spec",
            "pattern_from", "workload_spec", "workload_from",
            "tree_state", "load_state", "lm_state_from", "lm_params_from",
-           "plain_loads"]
+           "adamw_state_from", "plain_loads"]
 
 _UNARY = {"kleene": Kleene, "not": Not}
 _BINARY = {"or": Or, "and": And}
@@ -220,6 +222,31 @@ def lm_params_from(cfg, tree: dict, *, dtype=None, device=None):
     dev = resolve_device(device)
     model = LM(cfg, device="meta", dtype=dtype).to_empty(device=dev)
     return load_state(model, lm_state_from(cfg, tree))
+
+
+def adamw_state_from(cfg, opt_state: dict, *, device=None) -> dict:
+    """The port's AdamW state (``{"step", "m", "v"}``, the moments named as
+    :func:`lm_state_from` names the parameters) from the reference AdamW's
+    state of a JAX ``init_params`` tree, as numpy arrays.  Each moment keeps
+    its type (float32, or bfloat16 widened exactly and narrowed back).
+    ``device`` defaults to ``cuda:0`` and raises without a GPU."""
+    import torch
+
+    from .models.lm import resolve_device
+
+    dev = resolve_device(device)
+
+    def tensor(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.tensor(a.astype(np.float32), device=dev).bfloat16()
+        return torch.tensor(a, device=dev)
+
+    return {"step": torch.tensor(int(np.asarray(opt_state["step"])),
+                                 dtype=torch.int32, device=dev),
+            **{key: {n: tensor(a) for n, a in
+                     lm_state_from(cfg, opt_state[key]).items()}
+               for key in ("m", "v")}}
 
 
 # the top-level modules whose classes a plain pickle may name

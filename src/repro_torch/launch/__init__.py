@@ -1,1 +1,2 @@
-"""Launchers: the HAMLET service command line."""
+"""Launchers: the HAMLET service command line, the figures' configurations,
+and the LM substrate's serving and training launchers."""

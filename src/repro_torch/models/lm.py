@@ -1,6 +1,8 @@
-"""Unified LM assembly for the assigned architecture pool (serving part).
+"""Unified LM assembly for the assigned architecture pool.
 
-The port of ``repro.models.lm``'s model, caches and serving steps.  A model
+The port of ``repro.models.lm``: the model, caches, serving steps and the
+training step (loss with a chunked cross entropy, gradients by autograd,
+an optimizer update).  A model
 (:class:`LM`) holds its layers in one ``nn.ModuleList`` in layer order: the
 reference's scanned cycle groups unstacked (layer ``g * len(cycle) + ci``
 is group g's ``ci``-th layer), then its unrolled tail.  Layer kinds:
@@ -12,20 +14,24 @@ is group g's ``ci``-th layer), then its unrolled tail.  Layer kinds:
                                   block (zamba2)
     "rwkv6"                       RWKV-6 time mix + channel mix
 
-Steps: ``prefill`` (forward; can also fill the decode cache) and ``decode``
-(one token against the cache; local layers use a ring buffer bounded by
-the window).  Encoder-decoder (whisper) runs a bidirectional encoder over
-stub frame embeddings and a causal decoder with cross attention (cross K/V
-cached for decode).  Modality frontends are stubs: frames / patch
-embeddings arrive precomputed.
+Steps: ``train`` (:func:`train_step_fn`: loss + grads + optimizer update,
+in place), ``prefill`` (forward; can also fill the decode cache) and
+``decode`` (one token against the cache; local layers use a ring buffer
+bounded by the window).  With grad enabled a forward recomputes each cycle
+group's activations in the backward (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint`` per scanned group), and the loss projects
+onto the vocabulary one 512-position chunk at a time.  Encoder-decoder
+(whisper) runs a bidirectional encoder over stub frame embeddings and a
+causal decoder with cross attention (cross K/V cached for decode).
+Modality frontends are stubs: frames / patch embeddings arrive
+precomputed.
 
 A cache (:func:`init_cache`) is a list with one dict of tensors per layer.
 Prefill and decode write it in place and return it, so a step never copies
 the KV cache; the reference builds a new cache each step.  A whisper
 layer's cross K/V stay in the cache through decode (the reference's decode
 step drops them; ROADMAP.md, queue 3).  The reference's GSPMD sharding
-constraints have no counterpart on one card.  The training step (loss,
-chunked cross entropy, optimizer) is not ported here.
+constraints have no counterpart on one card.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .layers import (MLP, Attention, _sdpa, apply_mrope, apply_rope,
@@ -43,7 +50,8 @@ from .mamba2 import Mamba2, init_mamba2_state, mamba2_block, mamba2_decode
 from .moe import MoE, moe_block
 from .rwkv6 import RWKV6, init_rwkv6_state, rwkv6_block, rwkv6_decode
 
-__all__ = ["LM", "resolve_device", "init_cache", "prefill_fn", "decode_fn"]
+__all__ = ["LM", "resolve_device", "init_cache", "loss_fn", "train_step_fn",
+           "prefill_fn", "decode_fn"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -171,11 +179,14 @@ class LM(nn.Module):
         return self.embed.device
 
     def forward(self, batch: dict, *, cache: list | None = None,
-                decode: bool = False, last_only: bool = False):
-        """Returns (logits, aux_loss, cache).
+                decode: bool = False, last_only: bool = False,
+                return_hidden: bool = False):
+        """Returns (logits | hidden, aux_loss, cache).
 
         ``last_only``: project only the final position to logits (prefill).
-        With ``cache`` the step writes it in place and returns it."""
+        ``return_hidden``: skip the LM head entirely (the chunked-CE loss
+        projects per sequence chunk to bound logits memory).  With
+        ``cache`` the step writes it in place and returns it."""
         cfg = self.cfg
         enc_out = None
         if cfg.enc_dec and "frames" in batch:
@@ -203,6 +214,8 @@ class LM(nn.Module):
         x, aux = _run_stack(self, x, positions, cache=cache, enc_out=enc_out,
                             decode=False)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        if return_hidden:
+            return x, aux, cache
         if last_only:
             return _logits(self, x[:, -1:, :]), aux, cache
         return _logits(self, x), aux, cache
@@ -445,15 +458,34 @@ def _layer_apply(p, x, cfg, kind, positions, shared_p, cache, pos, enc_out,
 
 def _run_stack(model: LM, x, positions, *, cache=None, pos=None,
                enc_out=None, decode=False, causal=True):
+    """The layers in order, summing their aux losses.  With grad enabled
+    and no cache, each cycle group (layers ``g * len(cycle)`` to ``(g + 1)
+    * len(cycle) - 1``) runs under ``checkpoint``: its activations are
+    recomputed in the backward, as the reference's ``jax.checkpoint`` of
+    its scanned group body does; the tail runs unwrapped."""
     cfg = model.cfg
     shared_p = getattr(model, "shared_block", None)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, (layer, kind) in enumerate(zip(model.layers, model.kinds)):
-        c = None if cache is None else cache[i]
-        x, a = _layer_apply(layer, x, cfg, kind, positions, shared_p, c, pos,
-                            enc_out, decode, causal)
-        aux_total = aux_total + a
-    return x, aux_total
+
+    def run(lo, hi, x, aux):
+        for i in range(lo, hi):
+            c = None if cache is None else cache[i]
+            x, a = _layer_apply(model.layers[i], x, cfg, model.kinds[i],
+                                positions, shared_p, c, pos, enc_out, decode,
+                                causal)
+            aux = aux + a
+        return x, aux
+
+    cyc, n_groups, _ = cfg.layer_plan()
+    n = len(cyc)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = torch.is_grad_enabled() and not decode and cache is None
+    for g in range(n_groups):
+        if remat:
+            x, aux = checkpoint(run, g * n, (g + 1) * n, x, aux,
+                                use_reentrant=False)
+        else:
+            x, aux = run(g * n, (g + 1) * n, x, aux)
+    return run(n_groups * n, len(model.layers), x, aux)
 
 
 # ------------------------------------------------------------------ forward
@@ -511,6 +543,67 @@ def _logits(model: LM, x):
 
 
 # ------------------------------------------------------------------ steps
+
+
+CE_CHUNK = 512
+
+
+def _ce_chunk(head, xs, ls, softcap):
+    """Summed cross entropy of one chunk: project onto the head, upcast to
+    float32, softcap, ``logsumexp`` minus the label's logit."""
+    lg = (xs @ head).float()
+    if softcap:
+        lg = torch.tanh(lg / softcap) * softcap
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, ls[..., None].long())[..., 0]
+    return (lse - ll).sum()
+
+
+def _chunked_ce(model: LM, x, labels, chunk: int = CE_CHUNK):
+    """Cross entropy with per-chunk LM-head projection: the [B, S, vocab]
+    logits never materialise, and each chunk runs under ``checkpoint``, so
+    its [B, chunk, vocab] float32 slab is recomputed in the backward
+    instead of kept.  One chunk of length S when ``S % chunk != 0``, as in
+    the reference."""
+    B, S, _ = x.shape
+    if S % chunk:
+        chunk = S
+    head = getattr(model, "lm_head", None)
+    if head is None:
+        head = model.embed.T
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s in range(0, S, chunk):
+        total = total + checkpoint(
+            _ce_chunk, head, x[:, s:s + chunk], labels[:, s:s + chunk],
+            model.cfg.final_logit_softcap, use_reentrant=False)
+    return total / (B * S)
+
+
+def loss_fn(model: LM, batch: dict):
+    """Mean cross entropy over the last ``min(hidden, labels)`` positions
+    plus ``0.01 *`` the MoE load-balancing loss."""
+    hidden, aux, _ = model(batch, return_hidden=True)
+    labels = batch["labels"]
+    S = min(hidden.shape[1], labels.shape[1])
+    ce = _chunked_ce(model, hidden[:, -S:, :], labels[:, -S:])
+    return ce + 0.01 * aux
+
+
+def train_step_fn(optimizer):
+    """``step(model, opt_state, batch) -> loss``: the loss, every
+    parameter's gradient by autograd (zeros for a parameter the loss does
+    not reach, as ``jax.grad`` gives), and ``optimizer.update``, which
+    writes the parameters and ``opt_state`` in place."""
+
+    def step(model: LM, opt_state: dict, batch: dict):
+        names, params = zip(*model.named_parameters())
+        loss = loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        optimizer.update(dict(zip(names, params)), dict(zip(names, grads)),
+                         opt_state)
+        return loss.detach()
+
+    return step
 
 
 def prefill_fn(with_cache: bool = False):

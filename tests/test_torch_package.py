@@ -77,14 +77,17 @@ for pkg, mods in (("overload", ("config", "controller", "ingress", "shedding",
                                "qwen2_vl_7b", "whisper_tiny", "zamba2_7b",
                                "rwkv6_7b")),
                   ("models", ("layers", "moe", "mamba2", "rwkv6", "lm")),
-                  ("serve", ("engine",))):
+                  ("serve", ("engine",)),
+                  ("train", ("data", "optimizer", "trainer")),
+                  ("distributed", ("checkpoint",)),
+                  ("launch", ("train",))):
     for m in mods:
         assert f"repro_torch.{pkg}.{m}" in names, (pkg, m)
 """
     r = _run(["-c", code])
     assert r.returncode == 0, r.stderr
     n = int(r.stdout.split()[0])
-    assert n >= 69, r.stdout
+    assert n >= 94, r.stdout
 
 
 def test_streaming_layers_import_without_jax_or_repro():
@@ -135,6 +138,39 @@ assert len(ARCHS) == 10 and all(get_config(a).name for a in ARCHS)
 res = serve.main(["--arch", "rwkv6-7b", "--smoke", "--device", "cpu",
                   "--batch", "1", "--prompt-len", "8", "--gen", "2"])
 assert res["finite"]
+print("ok")
+"""
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_training_imports_without_jax_repro_or_ml_dtypes():
+    """The training path (``models.lm``'s loss and step, ``train``,
+    ``distributed.checkpoint``, ``launch.train``) imports in an interpreter
+    where ``jax``, ``repro`` and ``ml_dtypes`` cannot be imported, and
+    trains, checkpoints (a bfloat16 model) and resumes there on the CPU."""
+    code = """
+import sys, tempfile
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks",
+                                  "ml_dtypes"):
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, Block())
+from repro_torch.models.lm import loss_fn, train_step_fn
+from repro_torch.train import AdamW
+from repro_torch.train.trainer import run_training, TrainLoopConfig
+from repro_torch.distributed.checkpoint import CheckpointManager
+from repro_torch.interop import adamw_state_from
+from repro_torch.launch import train
+d = tempfile.mkdtemp()
+argv = ["--smoke", "--device", "cpu", "--batch", "1", "--seq", "8",
+        "--ckpt", d, "--ckpt-interval", "1"]
+first = train.main(argv + ["--steps", "2"])
+again = train.main(argv + ["--steps", "3"])
+assert first["resumed_from"] == 0 and again["resumed_from"] == 2
 print("ok")
 """
     r = _run(["-c", code])
