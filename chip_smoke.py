@@ -130,6 +130,31 @@ Phases, in order; a failure in any of them exits non-zero:
               steps (step ms, tokens/s, peak memory, every loss, the
               global gradient norm, all finite; the bf16 and f32 FLOPs of
               a step at the data sheet's peaks as its bound).
+13. dist    — the distributed substrate (``repro_torch.distributed``:
+              compression, pipeline, mesh rules, checkpoint resharding;
+              torch ops and ``torch.distributed``): four gloo ranks spawned
+              on a ``file://`` store, all on cuda:0 (NCCL refuses two ranks
+              on one device), each CUDA collective staged through the host
+              by ``distributed.comm`` and timed: ``compressed_psum_tree``
+              on gemma2-2b smoke gradients bitwise against the compressed
+              step's sync of the stacked ranks in one process;
+              ``pipelined_apply`` against ``sequential_apply`` at L 8, B
+              64, D 2,304, 4 micro-batches, f32 (1e-5); the parameter
+              rules through ``distribute_tensor`` on a (2, 2) data x model
+              mesh (local shapes, ``full_tensor`` equal); an elastic
+              restore from a 1-D mesh of 4 onto the (2, 2) mesh, bitwise;
+              ``shard_pane_bucket`` of a main-path masked bucket, each
+              rank's rows through the masked kernel bitwise equal to those
+              rows of one launch (these are the kernel's ``dist``
+              launches).  Then gemma2-2b at full width, bf16, f32 AdamW
+              moments, batch 2 x 5,120 over two pods with
+              ``dp_compressed_step_fn``: step 1 in its three parts, timed,
+              its sync of ``embed``, ``layers.0.attn.wq`` and
+              ``layers.0.ln1`` (scale, int8 payload, int32 sum, synced
+              gradients, new errors) bitwise against the same sync on the
+              CPU, its parameters within 5e-3 of ``train_step_fn``'s from
+              the same start; three timed steps (step ms p50, tokens/s,
+              peak memory, losses and error norms, all finite).
 
 Each path's kernel launches are counted from zero just before it runs; a
 path that should launch a kernel and did not fails the run.
@@ -2749,6 +2774,443 @@ def phase_train(torch, np) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the distributed substrate: compression, pipeline, mesh rules, resharding
+# --------------------------------------------------------------------------
+
+DIST_PODS = 2           # gemma2-2b's compressed step: 2 pods of 1 x 5,120
+DIST_STEPS = 3          # timed compressed steps, after the checked one
+DIST_PARAM_BOUND = 5e-3  # compressed against plain parameters after step 1
+                        # (the reference's test_dp_compressed_train_step)
+DIST_CHECK = ("embed", "layers.0.attn.wq", "layers.0.ln1")
+DIST_RANKS = 4          # gloo ranks sharing cuda:0 (NCCL refuses two ranks
+                        # on one device)
+PIPE_L, PIPE_B, PIPE_D, PIPE_MICRO = 8, 64, 2_304, 4   # D: gemma2's width
+PIPE_BOUND = 1e-5       # pipelined against sequential, f32, TF32 off
+
+
+def _same_bits(np, a, b) -> bool:
+    """Bit for bit: two tensors or arrays of one type and shape."""
+    a = a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+    b = b.detach().cpu().numpy() if hasattr(b, "detach") else np.asarray(b)
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and a.tobytes() == b.tobytes())
+
+
+def _host_copy(t):
+    return t.detach().to("cpu", copy=True)
+
+
+def _local_shape(shape, spec, sizes) -> tuple:
+    """The shard shape a spec gives each rank (dims divisible)."""
+    return tuple(
+        d // math.prod(sizes[a] for a in (
+            () if e is None else (e,) if isinstance(e, str) else e))
+        for d, e in zip(shape, spec))
+
+
+def _dist_rank(rank, n, root):
+    """One of the ``dist`` phase's gloo ranks on cuda:0: the compressed
+    psum, the pipeline, the mesh rules with ``distribute_tensor``, the
+    elastic restore and this rank's slice of a pane bucket through the
+    masked kernel.  Returns numpy arrays and numbers only."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed import comm, pipeline, sharding
+    from repro_torch.distributed.checkpoint import (restore_checkpoint,
+                                                    save_checkpoint)
+    from repro_torch.distributed.compression import compressed_psum_tree
+    from repro_torch.kernels import ops
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    case = torch.load(Path(root) / "case.pt")
+    out = {}
+
+    def timed(fn):
+        comm.STAGING.reset()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        st = comm.STAGING
+        return res, {"s": time.perf_counter() - t0, "copies": st.copies,
+                     "bytes": st.bytes, "staging_s": st.seconds}
+
+    g = {k: v.to(dev) for k, v in case["grads"][rank].items()}
+    e = {k: v.to(dev) for k, v in case["errors"][rank].items()}
+    (synced, new_e), out["psum_time"] = timed(
+        lambda: compressed_psum_tree(g, e, None, n))
+    out["psum"] = ({k: v.cpu().numpy() for k, v in synced.items()},
+                   {k: v.cpu().numpy() for k, v in new_e.items()})
+
+    gen = torch.Generator().manual_seed(0)
+    Ws = (torch.randn(PIPE_L, PIPE_D, PIPE_D, generator=gen)
+          * PIPE_D ** -0.5).to(dev)
+    x = torch.randn(PIPE_B, PIPE_D, generator=gen).to(dev)
+
+    def layer(W, h):
+        return torch.tanh(h @ W)
+
+    seq = pipeline.sequential_apply(layer, Ws, x)
+    pipe, out["pipe_time"] = timed(lambda: pipeline.pipelined_apply(
+        layer, Ws, x, n_micro=PIPE_MICRO))
+    out["pipe_err"] = float((pipe - seq).abs().max())
+
+    mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+    params = {k: v.to(dev) for k, v in case["params"].items()}
+    specs = sharding.param_pspecs(params, mesh)
+    placed = sharding.shardings_for(specs, mesh)
+    sizes = sharding.mesh_axes(mesh)
+    bad = []
+
+    def check_params():
+        for name, p in params.items():
+            dt = distribute_tensor(p, *placed[name], src_data_rank=None)
+            if (tuple(dt.to_local().shape) != _local_shape(
+                    p.shape, specs[name], sizes)
+                    or not torch.equal(comm.full_tensor(dt), p)):
+                bad.append(name)
+
+    _, out["sharding_time"] = timed(check_params)
+    out["sharding"] = {"params": len(params), "bad": bad, "sharded": sum(
+        any(e is not None for e in s) for s in specs.values())}
+
+    mesh1 = init_device_mesh("cuda", (n,), mesh_dim_names=("data",))
+    keep = [k for k, p in params.items() if p.shape[0] % n == 0]
+    saved = {k: distribute_tensor(
+        params[k], mesh1, sharding.placements_for(
+            ("data",) + (None,) * (params[k].ndim - 1), mesh1),
+        src_data_rank=None) for k in keep}
+    ckpt = str(Path(root) / "ckpt")
+
+    def elastic():
+        save_checkpoint(ckpt, 1, saved)
+        dist.barrier()
+        return restore_checkpoint(ckpt, 1, {k: params[k] for k in keep},
+                                  shardings={k: placed[k] for k in keep})
+
+    got, out["elastic_time"] = timed(elastic)
+    out["elastic"] = {"leaves": len(keep), "bad": [
+        k for k in keep if not (
+            tuple(got[k].to_local().shape)
+            == _local_shape(params[k].shape, specs[k], sizes)
+            and torch.equal(comm.full_tensor(got[k]).view(torch.uint8),
+                            params[k].view(torch.uint8)))]}
+
+    base, mask = case["base"].to(dev), case["mask"].to(dev)
+    rows = sharding.shard_pane_bucket(
+        torch.arange(base.shape[0], device=dev), mesh).to_local()
+    db = sharding.shard_pane_bucket(base, mesh).to_local()
+    dm = sharding.shard_pane_bucket(mask, mesh).to_local()
+    before = ops.kernel_launches()
+    res = ops.propagate_batched(db, dm, backend="cuda")
+    torch.cuda.synchronize()
+    after = ops.kernel_launches()
+    out["launches"] = {k: after[k] - before[k] for k in after}
+    out["bucket"] = (rows.cpu().numpy(), res.cpu().numpy())
+    return out
+
+
+def _bucket_shape(main_res) -> tuple:
+    """The masked kernel's costliest f64 main-path shape with nb >= 4 (so
+    that every data shard of the (2, 2) mesh holds bursts)."""
+    for (nb, b, d, dt), *_ in main_res["shapes"]["hamlet_propagate"][
+            "costliest"]:
+        if dt == "float64" and nb >= 4:
+            return nb, b, d
+    return 78, 313, 2
+
+
+def dist_ranks(torch, np, dev, main_res) -> dict:
+    """Four gloo ranks on cuda:0, spawned on a ``file://`` store, each
+    placing its tensors on cuda:0 (``_dist_rank``); held against the same
+    work in this process."""
+    import shutil
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.distributed import compression as C
+    from repro_torch.distributed.ranks import spawn_ranks
+    from repro_torch.kernels.hamlet_propagate import \
+        masked_prefix_propagate_cuda
+    from repro_torch.models import LM
+
+    root = ROOT / "build" / "chip_smoke_dist"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg = reduce_for_smoke(get_config(LM_ARCH))
+    model = LM(cfg, device=dev, seed=0)
+    grads = [{n: g.cpu() for n, g in _loss_grads(
+        torch, model, _on(torch, np, _train_batch(np, cfg, key=r), dev)
+    )[1].items()} for r in range(DIST_RANKS)]
+    rng = np.random.default_rng(7)
+    errors = [{n: torch.tensor(rng.standard_normal(tuple(g.shape)) * 1e-3,
+                               dtype=torch.float32)
+               for n, g in grads[0].items()} for _ in range(DIST_RANKS)]
+    nb, b, d = _bucket_shape(main_res)
+    base, mask = _masked_case(torch, np, rng, "cpu", nb, b, d, torch.float64,
+                              "random")
+    torch.save({"grads": grads, "errors": errors, "base": base, "mask": mask,
+                "params": {n: p.detach().cpu()
+                           for n, p in model.named_parameters()}},
+               root / "case.pt")
+    t0 = time.perf_counter()
+    outs = spawn_ranks(_dist_rank, DIST_RANKS, store_dir=str(root),
+                       backend="gloo", args=(str(root),), timeout=300)
+    wall = time.perf_counter() - t0
+
+    # the psum against the same sum in one process: the compressed step's
+    # sync over the ranks' stacked gradients
+    psum_bad = []
+    for n in grads[0]:
+        x = torch.stack([grads[r][n].to(dev).float() + errors[r][n].to(dev)
+                         for r in range(DIST_RANKS)])
+        synced, _, _ = C.sync_pods_(x, C.int8_scale(x), DIST_RANKS)
+        for r, out in enumerate(outs):
+            if not (_same_bits(np, out["psum"][0][n], synced)
+                    and _same_bits(np, out["psum"][1][n], x[r])):
+                psum_bad.append((r, n))
+    t = outs[0]["psum_time"]
+    log(f"[dist] ranks: {DIST_RANKS} gloo ranks on cuda:0 spawned and "
+        f"joined in {wall:.1f} s; compressed_psum_tree on {cfg.name} smoke "
+        f"gradients ({len(grads[0])} leaves, bf16, carried f32 errors): "
+        f"synced and new errors of every rank bitwise equal to the stacked "
+        f"sync in one process: {not psum_bad}; rank 0 {t['s'] * 1e3:.1f} ms "
+        f"of which host staging {t['staging_s'] * 1e3:.1f} ms "
+        f"({t['copies']} copies, {t['bytes']:,} bytes)")
+    pipe_err = max(o["pipe_err"] for o in outs)
+    t = outs[0]["pipe_time"]
+    log(f"[dist] ranks: pipelined_apply L {PIPE_L}, B {PIPE_B}, D {PIPE_D}, "
+        f"{DIST_RANKS} stages, n_micro {PIPE_MICRO}, f32 (TF32 off) against "
+        f"sequential_apply: max |diff| {pipe_err:.3e} (bound {PIPE_BOUND:g});"
+        f" rank 0 {t['s'] * 1e3:.1f} ms, host staging "
+        f"{t['staging_s'] * 1e3:.1f} ms ({t['copies']} copies)")
+    sh = outs[0]["sharding"]
+    t = outs[0]["sharding_time"]
+    log(f"[dist] ranks: param_pspecs on a (2, 2) data x model mesh, "
+        f"distribute_tensor of {sh['params']} {cfg.name} smoke parameters "
+        f"({sh['sharded']} sharded): local shapes as the rules say and "
+        f"full_tensor() equal on every rank: "
+        f"{not any(o['sharding']['bad'] for o in outs)} "
+        f"({t['s'] * 1e3:.1f} ms, staging {t['staging_s'] * 1e3:.1f} ms)")
+    el = outs[0]["elastic"]
+    log(f"[dist] ranks: elastic restore of {el['leaves']} leaves saved from "
+        f"a 1-D mesh of {DIST_RANKS}, restored onto the (2, 2) mesh by the "
+        f"rules: bitwise on every rank "
+        f"{not any(o['elastic']['bad'] for o in outs)} "
+        f"({outs[0]['elastic_time']['s'] * 1e3:.1f} ms)")
+    whole = masked_prefix_propagate_cuda(base.to(dev), mask.to(dev)).cpu()
+    bucket_bad = [r for r, o in enumerate(outs) if not _same_bits(
+        np, o["bucket"][1], whole[torch.as_tensor(o["bucket"][0])])]
+    launches = {k: sum(o["launches"][k] for o in outs)
+                for k in outs[0]["launches"]}
+    spans = [(int(o["bucket"][0][0]), int(o["bucket"][0][-1])) for o in outs]
+    log(f"[dist] ranks: shard_pane_bucket of a ({nb}, {b}, {d}) f64 masked "
+        f"bucket (the main path's costliest such shape): rows {spans} "
+        f"through ops.propagate_batched(backend='cuda') on each rank, "
+        f"bitwise equal to those rows of one launch: {not bucket_bad}; the "
+        f"ranks' kernel launches {launches}")
+    if (psum_bad or pipe_err > PIPE_BOUND or bucket_bad
+            or any(o["sharding"]["bad"] or o["elastic"]["bad"]
+                   for o in outs)):
+        fail(f"dist ranks: psum {psum_bad[:4]}, pipeline {pipe_err:.3e}, "
+             f"sharding {[o['sharding']['bad'][:3] for o in outs]}, elastic "
+             f"{[o['elastic']['bad'][:3] for o in outs]}, bucket "
+             f"{bucket_bad}")
+    shutil.rmtree(root, ignore_errors=True)
+    del model
+    return {"wall_s": wall, "launches": launches, "pipe_err": pipe_err,
+            "bucket": [nb, b, d],
+            "times": {k: outs[0][k] for k in ("psum_time", "pipe_time",
+                                               "sharding_time",
+                                               "elastic_time")}}
+
+
+def dist_full(torch, np, dev) -> dict:
+    """gemma2-2b at full width and depth in bf16 with float32 AdamW
+    moments, lr 1e-3, ``SyntheticLM`` seed 0, batch 2 x 5,120 split over
+    two pods: first ``train_step_fn`` from the start (its parameters kept
+    on the host), then, from the same start, step 1 of
+    ``dp_compressed_step_fn`` run as its three parts (the pods' gradients
+    into the errors, the sync leaf by leaf, AdamW), each timed, its sync of
+    ``DIST_CHECK``'s leaves held bit for bit against the same sync on the
+    CPU from the same per-pod gradients, and its parameters against the
+    plain step's; then ``DIST_STEPS`` steps through ``step`` timed on the
+    host clock with the device synced."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression as C
+    from repro_torch.models import LM, train_step_fn
+    from repro_torch.train import AdamW
+    from repro_torch.train.data import SyntheticLM
+
+    def synced_ms(t0):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    cfg = get_config(LM_ARCH)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = LM(cfg, device=dev, seed=0)
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    opt = AdamW(lr=TRAIN_LR)
+    state = opt.init(params)
+    src = SyntheticLM(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batch = _on(torch, np, src.batch_for_step(0), dev)
+
+    start = {n: _host_copy(p) for n, p in params.items()}
+    t0 = time.perf_counter()
+    train_step_fn(opt)(model, state, batch)
+    plain_ms = synced_ms(t0)
+    plain = {n: _host_copy(p) for n, p in params.items()}
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(start[n])
+        for key in ("m", "v"):
+            for t in state[key].values():
+                t.zero_()
+        state["step"].zero_()
+    del start
+    step, init_errors = C.dp_compressed_step_fn(opt, DIST_PODS)
+    errors = init_errors(model)
+    states = torch.cuda.memory_allocated() - base
+
+    def err_norm() -> float:
+        return float(torch.stack([torch.linalg.vector_norm(e)
+                                  for e in errors.values()]).norm())
+
+    leaves = C.stacked_leaves(model)
+    check = [leaf for leaf in leaves if set(leaf) & set(DIST_CHECK)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = C.accumulate_pod_grads_(model, errors, batch, DIST_PODS)
+    grads_ms = synced_ms(t0)
+    host_x = {n: _host_copy(errors[n]) for leaf in check for n in leaf}
+    grads, card = {}, {}
+    t0 = time.perf_counter()
+    for leaf in leaves:
+        s = C.int8_scale(*(errors[n] for n in leaf))
+        for n in leaf:
+            synced, q, summed = C.sync_pods_(errors[n], s, DIST_PODS)
+            grads[n] = synced
+            if n in DIST_CHECK:
+                card[n] = (s, q, summed, synced)
+    sync_ms = synced_ms(t0)
+    t0 = time.perf_counter()
+    opt.update(params, grads, state)
+    adamw_ms = synced_ms(t0)
+    del grads
+    card = {n: tuple(_host_copy(t) for t in v + (errors[n],))
+            for n, v in card.items()}
+    losses = [float(losses.mean())]
+    norms = [err_norm()]
+
+    held = {}
+    for leaf in check:
+        s = C.int8_scale(*(host_x[n] for n in leaf))
+        for n in leaf:
+            if n not in DIST_CHECK:
+                continue
+            synced, q, summed = C.sync_pods_(host_x[n], s, DIST_PODS)
+            want = (s, q, summed, synced, host_x[n])
+            held[n] = {k: _same_bits(np, a, b) for k, a, b in zip(
+                ("scale", "q", "int32 sum", "synced", "new errors"),
+                card[n], want)}
+    del host_x, card
+    env = 0.0
+    with torch.no_grad():
+        for n, p in params.items():
+            env = max(env, float((p.float() - plain[n].to(dev).float())
+                                 .abs().max()))
+    del plain
+
+    times = []
+    for i in range(1, DIST_STEPS + 1):
+        b = _on(torch, np, src.batch_for_step(i), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(model, state, errors, b)
+        times.append(synced_ms(t0))
+        losses.append(float(loss))
+        norms.append(err_norm())
+    peak = torch.cuda.max_memory_allocated() - base
+    finite = (all(math.isfinite(v) for v in losses + norms) and
+              all(bool(torch.isfinite(p).all()) for p in params.values()))
+    med = statistics.median(times)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (med / 1e3)
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    bound = (flops["bf16"] / PEAK_BF16_FLOPS + flops["f32"] / PEAK_F32_FLOPS
+             ) * 1e3
+    log(f"[dist] {cfg.name} full width ({n_params:,} parameters) bf16, f32 "
+        f"AdamW moments, dp_compressed_step_fn with n_pods {DIST_PODS}: "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ} ({DIST_PODS} pods of "
+        f"{TRAIN_BATCH // DIST_PODS} x {TRAIN_SEQ}); weights, AdamW states "
+        f"and errors {states / 1e9:.3f} GB")
+    log(f"[dist] step 1 in parts: both pods' gradients into the errors "
+        f"{grads_ms:.1f} ms, the sync ({len(leaves)} leaves) {sync_ms:.1f} "
+        f"ms, AdamW {adamw_ms:.1f} ms; the plain train_step_fn from the "
+        f"same start {plain_ms:.1f} ms")
+    log(f"[dist] step p50 {med:.1f} ms (min {min(times):.1f}, max "
+        f"{max(times):.1f}) over {DIST_STEPS}; {tok_s:.1f} tokens/s; peak "
+        f"{peak / 1e9:.3f} GB (max_memory_allocated above the "
+        f"{base / 1e9:.3f} GB held before); the step's FLOPs bound "
+        f"{bound:.1f} ms ({bound / med:.1%} of the step)")
+    log(f"[dist] losses {[round(v, 6) for v in losses]}; error norms "
+        f"{[round(v, 6) for v in norms]}; all finite {finite}")
+    for n, h in held.items():
+        log(f"[dist] step 1's sync of {n}, card against the CPU from the "
+            f"same per-pod gradients: {h}")
+    log(f"[dist] parameters after step 1, compressed against plain: max "
+        f"|diff| {env:.6g} (bound {DIST_PARAM_BOUND:g})")
+    if (not finite or env > DIST_PARAM_BOUND
+            or not all(all(h.values()) for h in held.values())
+            or set(held) != set(DIST_CHECK)):
+        fail(f"dist full width: finite={finite}, envelope {env}, sync "
+             f"{held}")
+    del model, state, errors, params
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "params": n_params, "n_pods": DIST_PODS,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "plain_ms": plain_ms,
+            "parts_ms": {"grads": grads_ms, "sync": sync_ms,
+                         "adamw": adamw_ms},
+            "step_ms": times, "step_ms_p50": med, "tokens_per_s": tok_s,
+            "state_bytes": states, "peak_bytes": peak, "losses": losses,
+            "error_norms": norms, "sync_held": held, "envelope": env,
+            "bound_ms": bound}
+
+
+def phase_dist(torch, np, main_res) -> dict:
+    """The distributed substrate on the card (``repro_torch.distributed``,
+    ``launch.mesh``; torch ops and ``torch.distributed``, no TPU kernel
+    but the masked kernel on the pane-bucket hook): four gloo ranks on
+    cuda:0, then gemma2-2b's compressed data-parallel step at full width.
+    Sets ``allow_bf16_reduced_precision_reduction = False`` as the ``lm``
+    and ``train`` phases do."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device(DEVICE)
+    torch.cuda.empty_cache()
+    log(f"[dist] held on the card before the phase: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    fns = _kernel_fns()
+    _reset(*fns.values())
+    out = {"ranks": dist_ranks(torch, np, dev, main_res),
+           "full": dist_full(torch, np, dev)}
+    # the ranks' own launches (the comparison launch here does not count)
+    out["launches"] = {name: out["ranks"]["launches"].get(name, 0)
+                       for name in fns}
+    log(f"[dist] kernel launches over the phase's path: {out['launches']}")
+    if out["launches"]["hamlet_propagate"] == 0:
+        fail("dist: the pane-bucket hook launched no masked kernel")
+    return out
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -2785,6 +3247,9 @@ def main() -> None:
     t_phase = time.perf_counter()
     train_res = phase_train(torch, np)
     log(f"[train] phase wall {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    dist_res = phase_dist(torch, np, main_res)
+    log(f"[dist] phase wall {time.perf_counter() - t_phase:.1f} s")
     check = next(c for c in kernels["hamlet_propagate"]["checks"]
                  if c["case"] == "solved rows in global memory")
     log(f"[baselines] the masked kernel's global-memory variant: (1, "
@@ -2804,6 +3269,7 @@ def main() -> None:
         e["serve_launches"] = serve_res["launches"][name]
         e["lm_launches"] = lm_res["launches"][name]
         e["train_launches"] = train_res["launches"][name]
+        e["dist_launches"] = dist_res["launches"][name]
     hp = kernels["hamlet_propagate"]
     hp["greta"] = dict(base_res["greta_shape"],
                        launches=base_res["launches"])
@@ -2814,7 +3280,7 @@ def main() -> None:
                                     ("finite_cut", "large_finite", "paper")},
                       "obs": obs_res, "stream": stream_res,
                       "shards": shards_res, "serve": serve_res,
-                      "lm": lm_res, "train": train_res},
+                      "lm": lm_res, "train": train_res, "dist": dist_res},
                      default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,8 @@ as the port's ``LM`` names its parameter, and :func:`lm_params_from`
 builds the port's model from it (:func:`tree_state` and
 :func:`load_state` do the same for one block's tree and module).
 :func:`adamw_state_from` carries the reference AdamW's ``{"step", "m",
-"v"}`` state the same way, so a JAX training state continues in the port.
+"v"}`` state the same way, and :func:`ef_errors_from` the compressed
+step's error feedback, so a JAX training state continues in the port.
 
 What crosses a process or a socket as a pickle holds builtins and numpy
 only — the wire protocol's HELLO and END frames, whose reader may be the
@@ -45,7 +46,7 @@ from .core.query import Agg, EdgePred, Pred, Query, Workload
 __all__ = ["schema_from", "batch_from", "stream_columns", "pattern_spec",
            "pattern_from", "workload_spec", "workload_from",
            "tree_state", "load_state", "lm_state_from", "lm_params_from",
-           "adamw_state_from", "plain_loads"]
+           "adamw_state_from", "ef_errors_from", "plain_loads"]
 
 _UNARY = {"kleene": Kleene, "not": Not}
 _BINARY = {"or": Or, "and": And}
@@ -247,6 +248,39 @@ def adamw_state_from(cfg, opt_state: dict, *, device=None) -> dict:
             **{key: {n: tensor(a) for n, a in
                      lm_state_from(cfg, opt_state[key]).items()}
                for key in ("m", "v")}}
+
+
+def _swap_pods(tree):
+    """Each leaf of a tree of dicts and tuples with its first two axes
+    swapped: ``[n_pods, G, ...]`` -> ``[G, n_pods, ...]``."""
+    if isinstance(tree, dict):
+        return {k: _swap_pods(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_swap_pods(v) for v in tree)
+    return np.swapaxes(np.asarray(tree), 0, 1)
+
+
+def ef_errors_from(cfg, errors: dict, *, device=None) -> dict:
+    """The port's error-feedback state (parameter name -> ``[n_pods,
+    *shape]`` float32, as ``dp_compressed_step_fn``'s ``init_errors``
+    makes it) from the reference's ``init_errors`` tree of numpy arrays,
+    whose leaves are ``[n_pods, ...]`` over an ``init_params`` tree (the
+    scanned groups' ``[n_pods, G, ...]``), unstacked as
+    :func:`lm_state_from` unstacks.  Also maps any tree laid out so, such
+    as per-pod gradients.  ``device`` defaults to ``cuda:0`` and raises
+    without a GPU."""
+    import torch
+
+    from .models.lm import resolve_device
+
+    dev = resolve_device(device)
+    tree = dict(errors)
+    tree["scan"] = _swap_pods(errors["scan"])
+    if "enc" in errors:
+        tree["enc"] = {**errors["enc"],
+                       "scan": _swap_pods(errors["enc"]["scan"])}
+    return {n: torch.tensor(np.ascontiguousarray(a, np.float32), device=dev)
+            for n, a in lm_state_from(cfg, tree).items()}
 
 
 # the top-level modules whose classes a plain pickle may name

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .partitioning import constrain
+
 __all__ = [
     "rms_norm", "apply_rope", "apply_mrope", "sincos_positions",
     "attention_block", "mlp_block", "Attention", "MLP", "sdpa_chunked",
@@ -192,8 +194,18 @@ def sdpa_chunked(q, k, v, cfg, mask_fn, q_offset: int = 0,
         kpad = F.pad(k, (0, 0, 0, 0, W, 0))
         vpad = F.pad(v, (0, 0, 0, 0, W, 0))
 
+    # whole chunks stack on a leading axis, as in the reference, whose
+    # "attn_chunks" spec keeps each chunk's slice on its shard
+    qs = None
+    if S % chunk == 0:
+        qs = constrain(q.reshape(B, S // chunk, chunk, H, hd).transpose(0, 1),
+                       "attn_chunks")
+
     def one(qstart: int, qend: int):
-        qc = q[:, qstart:qend]
+        qc = q[:, qstart:qend] if qs is None else qs[qstart // chunk]
+        # per-chunk sequence parallelism: the chunk's rows over the model
+        # axis (set when head counts do not divide it)
+        qc = constrain(qc, "attn_chunk")
         qpos = torch.arange(qstart, qend, device=dev) + q_offset
         if band is not None:
             kk = kpad[:, qstart:qstart + band]

@@ -31,7 +31,9 @@ Prefill and decode write it in place and return it, so a step never copies
 the KV cache; the reference builds a new cache each step.  A whisper
 layer's cross K/V stay in the cache through decode (the reference's decode
 step drops them; ROADMAP.md, queue 3).  The reference's GSPMD sharding
-constraints have no counterpart on one card.
+constraints sit at its call sites as :func:`~repro_torch.models.
+partitioning.constrain`, which redistributes a ``DTensor`` and leaves a
+plain tensor as it is.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from .layers import (MLP, Attention, _sdpa, apply_mrope, apply_rope,
                      sincos_positions)
 from .mamba2 import Mamba2, init_mamba2_state, mamba2_block, mamba2_decode
 from .moe import MoE, moe_block
+from .partitioning import constrain
 from .rwkv6 import RWKV6, init_rwkv6_state, rwkv6_block, rwkv6_decode
 
 __all__ = ["LM", "resolve_device", "init_cache", "loss_fn", "train_step_fn",
@@ -339,6 +342,11 @@ def _self_attention(ap, h, cfg, kind, positions, cache, pos, decode, causal):
     S = h.shape[1]
     q = _project_q(ap, h, cfg, akind, positions)
     k, v = _project_kv(ap, h, cfg, akind, positions)
+    # sequence-parallel attention: where the head count does not divide
+    # the model axis, the query sequence shards instead (k, v replicate)
+    q = constrain(q, "attn_q")
+    k = constrain(k, "attn_kv")
+    v = constrain(v, "attn_kv")
 
     def mask_fn(qpos, kpos):
         qp, kp = qpos[:, None], kpos[None, :]
@@ -352,6 +360,7 @@ def _self_attention(ap, h, cfg, kind, positions, cache, pos, decode, causal):
     out = sdpa_chunked(q, k, v, cfg, mask_fn,
                        local_window=cfg.window if (akind == "local" and
                                                    causal) else None)
+    out = constrain(out, "attn_out")
     if cache is not None:                       # prefill: fill the cache
         if "pos" in cache:
             span = cache["k"].shape[1]
@@ -477,14 +486,19 @@ def _run_stack(model: LM, x, positions, *, cache=None, pos=None,
 
     cyc, n_groups, _ = cfg.layer_plan()
     n = len(cyc)
+
+    def group(lo, hi, x, aux):      # the residual stream's "act" spec at
+        x, aux = run(lo, hi, constrain(x, "act"), aux)  # a group's ends
+        return constrain(x, "act"), aux
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = torch.is_grad_enabled() and not decode and cache is None
     for g in range(n_groups):
         if remat:
-            x, aux = checkpoint(run, g * n, (g + 1) * n, x, aux,
+            x, aux = checkpoint(group, g * n, (g + 1) * n, x, aux,
                                 use_reentrant=False)
         else:
-            x, aux = run(g * n, (g + 1) * n, x, aux)
+            x, aux = group(g * n, (g + 1) * n, x, aux)
     return run(n_groups * n, len(model.layers), x, aux)
 
 
@@ -551,7 +565,7 @@ CE_CHUNK = 512
 def _ce_chunk(head, xs, ls, softcap):
     """Summed cross entropy of one chunk: project onto the head, upcast to
     float32, softcap, ``logsumexp`` minus the label's logit."""
-    lg = (xs @ head).float()
+    lg = constrain((xs @ head).float(), "logits")
     if softcap:
         lg = torch.tanh(lg / softcap) * softcap
     lse = torch.logsumexp(lg, dim=-1)

@@ -80,7 +80,11 @@ for pkg, mods in (("overload", ("config", "controller", "ingress", "shedding",
                   ("serve", ("engine",)),
                   ("train", ("data", "optimizer", "trainer")),
                   ("distributed", ("checkpoint",)),
-                  ("launch", ("train",))):
+                  ("launch", ("train",)),
+                  ("distributed", ("compression", "pipeline", "comm",
+                                   "ranks")),
+                  ("models", ("partitioning",)),
+                  ("launch", ("mesh",))):
     for m in mods:
         assert f"repro_torch.{pkg}.{m}" in names, (pkg, m)
 """
@@ -171,6 +175,42 @@ argv = ["--smoke", "--device", "cpu", "--batch", "1", "--seq", "8",
 first = train.main(argv + ["--steps", "2"])
 again = train.main(argv + ["--steps", "3"])
 assert first["resumed_from"] == 0 and again["resumed_from"] == 2
+print("ok")
+"""
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_distributed_substrate_imports_without_jax_or_repro():
+    """The compression, pipeline, mesh rules, partitioning hooks and mesh
+    import in an interpreter where ``jax`` and ``repro`` cannot be
+    imported; ``make_production_mesh`` builds on ``"cuda"`` unless asked
+    for the CPU, and without a GPU it raises instead."""
+    code = """
+import inspect, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"):
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, Block())
+import torch
+from repro_torch.distributed import (compressed_psum_tree,
+    dp_compressed_step_fn, ef_compress_tree, param_pspecs, pipelined_apply,
+    shard_pane_bucket, shardings_for)
+from repro_torch.distributed.ranks import spawn_ranks
+from repro_torch.models.partitioning import activation_specs, constrain
+from repro_torch.interop import ef_errors_from
+from repro_torch.launch.mesh import describe_mesh, make_production_mesh
+assert inspect.signature(make_production_mesh).parameters[
+    "device_type"].default == "cuda"
+if not torch.cuda.is_available():
+    try:
+        make_production_mesh()
+        raise SystemExit("no refusal")
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e), e
 print("ok")
 """
     r = _run(["-c", code])
