@@ -155,6 +155,22 @@ Phases, in order; a failure in any of them exits non-zero:
               CPU, its parameters within 5e-3 of ``train_step_fn``'s from
               the same start; three timed steps (step ms p50, tokens/s,
               peak memory, losses and error norms, all finite).
+14. lower   — the lowering proofs (``repro_torch.launch.dryrun``,
+              ``launch.hlo_analysis``; traces of ``meta`` tensors on
+              placeholder worlds, run in this process, no GPU needed): the
+              HAMLET pane step on the (16, 16) and (2, 16, 16) meshes and
+              gemma2-2b's prefill_32k and train_4k on the (16, 16) mesh,
+              each record printed and ``ok``; the proof's FLOPs of
+              gemma2-2b's train step at batch 2 x 5,120 on a 1-rank world
+              equal to ``FlopCounterMode`` over one real step on the card
+              and within 1% of ``train_flops``; the pane step's body at
+              its full shape on the card (G 4,096 bursts of 256 rows, f32,
+              seeded counts, masks of density 0.5), its device ms, its
+              masked part against the masked kernel and its dense part
+              against the dense kernel (finite entries within 1e-4, each
+              kernel's non-finite pattern equal to its np oracle's, the
+              twins' counted: these are the kernels' ``lower``
+              launches).
 
 Each path's kernel launches are counted from zero just before it runs; a
 path that should launch a kernel and did not fails the run.
@@ -3211,6 +3227,215 @@ def phase_dist(torch, np, main_res) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the lowering proofs: placeholder-world traces, and the pane step on the card
+# --------------------------------------------------------------------------
+
+LOWER_CELLS = ("prefill_32k", "train_4k")   # gemma2-2b on the (16, 16) mesh
+PANE_DP = 16            # the card's pane step: the single pod's burst split
+RTOL_PANE = 1e-4        # finite pane-step entries, twin against kernel,
+                        # f32: |a - b| <= RTOL_PANE * (1 + |b|) (the blocked
+                        # solve and the closed form round in another order
+                        # than the kernels, over 256 rows)
+
+
+def _pattern(np, a) -> dict:
+    return {"finite": int(np.isfinite(a).sum()), "nan": int(np.isnan(a).sum()),
+            "inf": int(np.isinf(a).sum())}
+
+
+def _pane_held(np, what: str, twin, kernel, oracle) -> dict:
+    """The twin against the kernel on every entry finite in both (the
+    largest relative error and the bitwise entries), and the three
+    non-finite patterns against each other."""
+    t, k = (x.detach().to("cpu", copy=True).numpy() for x in (twin, kernel))
+    both = np.isfinite(t) & np.isfinite(k)
+    diff = np.abs(t[both] - k[both])
+    rel = float((diff / (1.0 + np.abs(k[both]))).max()) if diff.size else 0.0
+    out = {"entries": int(t.size), "both_finite": int(both.sum()),
+           "bitwise": int((t[both] == k[both]).sum()), "max_rel_err": rel,
+           "twin": _pattern(np, t), "kernel": _pattern(np, k),
+           "np_oracle": _pattern(np, oracle),
+           "kernel_vs_oracle_pattern_mismatch": int(
+               (np.isnan(k) != np.isnan(oracle)).sum() +
+               (np.isposinf(k) != np.isposinf(oracle)).sum() +
+               (np.isneginf(k) != np.isneginf(oracle)).sum()),
+           "twin_vs_oracle_pattern_mismatch": int(
+               (np.isfinite(t) != np.isfinite(oracle)).sum() +
+               (np.isnan(t) != np.isnan(oracle)).sum())}
+    log(f"[lower] pane step, {what}: {out['both_finite']}/{out['entries']} "
+        f"entries finite in twin and kernel, {out['bitwise']} bitwise, max "
+        f"rel err {rel:.3e} (bound {RTOL_PANE}); non-finite: twin "
+        f"{out['twin']}, kernel {out['kernel']}, np oracle "
+        f"{out['np_oracle']}; kernel/oracle pattern mismatches "
+        f"{out['kernel_vs_oracle_pattern_mismatch']}, twin/oracle "
+        f"{out['twin_vs_oracle_pattern_mismatch']}")
+    return out
+
+
+def lower_traces(torch) -> dict:
+    """The pane step's proof on both production meshes and gemma2-2b's
+    ``LOWER_CELLS`` on the single pod's, each in its own placeholder
+    world; every record printed, any status but ``ok`` fails."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh, \
+        placeholder_world
+
+    recs = []
+    for multi in (False, True):
+        with placeholder_world(512 if multi else 256):
+            mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
+            recs.append(dryrun.hamlet_pane_step(mesh))
+            if not multi:
+                recs += [dryrun.lower_cell(LM_ARCH, c, mesh)
+                         for c in LOWER_CELLS]
+    for r in recs:
+        log(f"[lower] {json.dumps(r)}")
+        if r["status"] != "ok":
+            fail(f"lower: {r['arch']} {r['cell']} on {r['mesh']}: "
+                 f"{r['status']}")
+    return {f"{r['arch']}/{r['cell']}/{r['mesh']}": r for r in recs}
+
+
+def lower_flops(torch, np, dev) -> dict:
+    """The proof's FLOPs of gemma2-2b's train step at the ``train`` phase's
+    batch on a 1-rank world, against ``FlopCounterMode`` over one real
+    ``train_step_fn`` step at full width on the card, and against
+    ``train_flops``: the first two must be equal, the ratio to the third
+    within 0.99-1.01."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import placeholder_world
+    from repro_torch.models import LM, train_step_fn
+    from repro_torch.train import AdamW
+    from repro_torch.train.data import SyntheticLM
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    with placeholder_world(1):
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rec = dryrun.lower_step(LM_ARCH, cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                "train", mesh)
+    trace_s = time.perf_counter() - t0
+    model = LM(cfg, device=dev, seed=0)
+    opt = AdamW(lr=TRAIN_LR)
+    state = opt.init(dict(model.named_parameters()))
+    batch = _on(torch, np, SyntheticLM(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                                       seed=0).batch_for_step(0), dev)
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        loss = float(train_step_fn(opt)(model, state, batch))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    card = fc.get_total_flops()
+    analytic = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    total = analytic["bf16"] + analytic["f32"]
+    ratio = rec["flops"] / total
+    log(f"[lower] {LM_ARCH} train step, batch {TRAIN_BATCH} x {TRAIN_SEQ}: "
+        f"proof on a 1-rank world {rec['flops']:.6e} FLOPs (its unsharded "
+        f"count {rec['flops_exact']:.6e}; traced in {trace_s:.1f} s), "
+        f"FlopCounterMode over a real step on the card {card:.6e} (loss "
+        f"{loss:.6f}, {step_s:.1f} s under the counter), train_flops "
+        f"{total:.6e}: ratio {ratio:.6f}")
+    del model, state
+    torch.cuda.empty_cache()
+    if not (rec["flops"] == card == rec["flops_exact"]):
+        fail(f"lower: proof {rec['flops']} / unsharded {rec['flops_exact']} "
+             f"FLOPs against the card's FlopCounterMode {card}")
+    if not 0.99 <= ratio <= 1.01 or not math.isfinite(loss):
+        fail(f"lower: FLOP ratio to train_flops {ratio}, loss {loss}")
+    return {"proof_flops": rec["flops"], "unsharded_flops": rec["flops_exact"],
+            "card_flops": card, "train_flops": total, "ratio": ratio,
+            "trace_s": trace_s, "loss": loss}
+
+
+def lower_pane(torch, np, dev) -> dict:
+    """The pane step's body at its full shape on the card, seeded real
+    inputs (``dryrun.pane_inputs``: counts, masks of density
+    ``dryrun.PANE_DENSITY``), the twins computing it as the reference
+    does: its device ms (CUDA events, median of 5 after a warm-up); then
+    the masked part held against ``propagate_batched(backend="cuda")`` and
+    the dense part against the dense kernel: finite entries within
+    ``RTOL_PANE``, and each kernel's non-finite pattern equal to its np
+    oracle's (the twins' patterns counted).  Those two launches are the
+    phase's."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import dryrun
+
+    args = dryrun.pane_inputs(PANE_DP, device=dev, seed=0)
+    base_d, base_m, masks = args[:3]
+    dryrun.pane_step(*args)
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        coef_sum, counts_sum = dryrun.pane_step(*args)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    ms = statistics.median(times)
+    coef_d, coef_m = dryrun.pane_parts(base_d, base_m, masks)
+    fns = _kernel_fns()
+    _reset(*fns.values())
+    k_m = ops.propagate_batched(base_m, masks, backend="cuda")
+    k_d = ops.propagate_dense_batched(base_d, backend="cuda")
+    torch.cuda.synchronize()
+    launches = _launches()
+    host = [x.to("cpu", copy=True).numpy() for x in (base_m, masks, base_d)]
+    with np.errstate(over="ignore", invalid="ignore"):
+        o_m = ref.numpy_prefix_propagate_batched(host[0], host[1])
+        o_d = ref.prefix_propagate_dense_np_batched(host[2])
+    G, b, B, k, C = dryrun.PANE_SHAPE
+    log(f"[lower] pane step on the card: G {G} (dense {base_d.shape[0]}, "
+        f"masked {base_m.shape[0]}, density {dryrun.PANE_DENSITY}), b {b}, "
+        f"B {B}, k {k}, C {C}, f32: {ms:.4f} ms (median of 5, CUDA events; "
+        f"{[round(t, 4) for t in times]}); sums finite "
+        f"{bool(torch.isfinite(coef_sum).any())}/"
+        f"{bool(torch.isfinite(counts_sum).any())}")
+    out = {"ms": ms, "times_ms": times, "launches": launches,
+           "masked": _pane_held(np, "masked (blocked twin vs the masked "
+                                "kernel; np oracle the f32 row loop)",
+                                coef_m, k_m, o_m),
+           "dense": _pane_held(np, "dense (f32 twin vs the dense kernel; np "
+                               "oracle the f64-weight closed form)",
+                               coef_d, k_d, o_d)}
+    for part in ("masked", "dense"):
+        h = out[part]
+        if (h["max_rel_err"] > RTOL_PANE or h["both_finite"] == 0
+                or h["kernel_vs_oracle_pattern_mismatch"]):
+            fail(f"lower: pane step {part}: finite entries beyond "
+                 f"{RTOL_PANE}, none finite, or the kernel's non-finite "
+                 f"pattern departs from its np oracle's: {h}")
+    return out
+
+
+def phase_lower(torch, np) -> dict:
+    """The lowering proofs (``repro_torch.launch.dryrun``, ``launch.
+    hlo_analysis``; placeholder-world traces need no GPU and run in this
+    process) and the pane step on the card: the traces, the train step's
+    FLOPs against the card's, the pane step held against both kernels.
+    Sets ``allow_bf16_reduced_precision_reduction = False`` as the ``lm``
+    phase does, and ``allow_tf32 = False`` as ``main`` does (the pane
+    step's float32 products in full float32)."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    torch.cuda.empty_cache()
+    out = {"traces": lower_traces(torch), "flops": lower_flops(torch, np, dev),
+           "pane": lower_pane(torch, np, dev)}
+    out["launches"] = out["pane"]["launches"]
+    log(f"[lower] kernel launches over the phase's path: {out['launches']}")
+    if not all(out["launches"].values()):
+        fail(f"lower: a kernel did not launch on the pane step: "
+             f"{out['launches']}")
+    return out
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -3250,6 +3475,9 @@ def main() -> None:
     t_phase = time.perf_counter()
     dist_res = phase_dist(torch, np, main_res)
     log(f"[dist] phase wall {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    lower_res = phase_lower(torch, np)
+    log(f"[lower] phase wall {time.perf_counter() - t_phase:.1f} s")
     check = next(c for c in kernels["hamlet_propagate"]["checks"]
                  if c["case"] == "solved rows in global memory")
     log(f"[baselines] the masked kernel's global-memory variant: (1, "
@@ -3270,6 +3498,7 @@ def main() -> None:
         e["lm_launches"] = lm_res["launches"][name]
         e["train_launches"] = train_res["launches"][name]
         e["dist_launches"] = dist_res["launches"][name]
+        e["lower_launches"] = lower_res["launches"][name]
     hp = kernels["hamlet_propagate"]
     hp["greta"] = dict(base_res["greta_shape"],
                        launches=base_res["launches"])
@@ -3280,7 +3509,8 @@ def main() -> None:
                                     ("finite_cut", "large_finite", "paper")},
                       "obs": obs_res, "stream": stream_res,
                       "shards": shards_res, "serve": serve_res,
-                      "lm": lm_res, "train": train_res, "dist": dist_res},
+                      "lm": lm_res, "train": train_res, "dist": dist_res,
+                      "lower": lower_res},
                      default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,15 @@
 Each assigned architecture has its own module exporting ``CONFIG`` (the
 JAX package's values, copied); the registry maps ``--arch <id>`` to it.
 ``reduce_for_smoke`` produces the tiny same-family config used by the
-smoke tests.
+smoke tests; ``input_specs`` the ``meta`` stand-ins of a cell's inputs.
 """
 
 from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig, SHAPE_CELLS, reduce_for_smoke  # noqa: F401
+from .base import (ModelConfig, SHAPE_CELLS, input_specs,  # noqa: F401
+                   reduce_for_smoke)
 
 ARCHS = (
     "gemma2-2b",

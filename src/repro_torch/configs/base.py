@@ -3,15 +3,19 @@
 One ``ModelConfig`` describes any of the 10 assigned architectures; the
 layer plan (``layer_kinds``, ``layer_plan``) drives the layer stack that
 ``repro_torch.models.lm`` assembles.  The port keeps its own copy of the
-JAX package's configuration values.  ``input_specs`` (shape stand-ins for
-a dry-run lowering) belongs to the lowering tools and is not ported here.
+JAX package's configuration values.  ``input_specs`` produces ``meta``
+tensors standing in for every (shape-cell x step) without allocating
+memory: the lowering proofs (``repro_torch.launch.dryrun``) trace against
+them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-__all__ = ["ModelConfig", "SHAPE_CELLS", "reduce_for_smoke"]
+import torch
+
+__all__ = ["ModelConfig", "SHAPE_CELLS", "input_specs", "reduce_for_smoke"]
 
 # assigned LM shape set: name -> (seq_len, global_batch, step)
 SHAPE_CELLS = {
@@ -116,6 +120,42 @@ class ModelConfig:
             return ("pure full-attention architecture: 500k decode needs "
                     "sub-quadratic attention (DESIGN.md §Arch-applicability)")
         return None
+
+
+def input_specs(cfg: ModelConfig, cell: str) -> dict[str, torch.Tensor]:
+    """``meta`` tensors standing in for one (arch x shape-cell)'s inputs:
+    the reference's keys, shapes and dtypes (ids ``torch.int32``,
+    embeddings in the config's dtype)."""
+    return step_specs(cfg, *SHAPE_CELLS[cell])
+
+
+def step_specs(cfg: ModelConfig, seq: int, batch: int,
+               step: str) -> dict[str, torch.Tensor]:
+    """:func:`input_specs` of a (seq, batch, step) that need not be one of
+    ``SHAPE_CELLS``."""
+    f = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+    def s(shape, dt=torch.int32):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    if step == "decode":
+        # one new token against a cache of length seq
+        out = {"token": s((batch, 1)), "pos": s((batch,))}
+        if cfg.mrope_sections:
+            out["positions"] = s((3, batch, 1))
+        return out
+    labels = {"labels": s((batch, seq))} if step == "train" else {}
+    if cfg.enc_dec:
+        return {"frames": s((batch, seq, cfg.d_model), f),
+                "tokens": s((batch, seq)), **labels}
+    if cfg.frontend == "patches":
+        n_vis = min(1024, seq // 4)
+        out = {"tokens": s((batch, seq - n_vis)),
+               "patch_embeds": s((batch, n_vis, cfg.d_model), f), **labels}
+        if cfg.mrope_sections:
+            out["positions"] = s((3, batch, seq))
+        return out
+    return {"tokens": s((batch, seq)), **labels}
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:

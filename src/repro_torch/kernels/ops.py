@@ -1,11 +1,15 @@
 """Public wrappers around the propagation primitive and the fold programs.
 
-``propagate(base, mask, backend=...)`` dispatches to one of three backends:
+``propagate(base, mask, backend=...)`` dispatches to one of these backends:
 
 * ``"np"``    — the numpy host oracles of :mod:`.ref` (host arrays in and out);
 * ``"torch"`` — their plain PyTorch twins on any ``torch.device``;
 * ``"cuda"``  — the hand-written CUDA kernels (``hamlet_propagate.py``,
-  ``hamlet_dense.py``) on a CUDA device.
+  ``hamlet_dense.py``) on a CUDA device;
+* ``"torch_ref"``, ``"torch_blocked"``, ``"torch_solve"`` — the twins of
+  the JAX package's ``jnp`` oracles (its ``"jax"``, ``"jax_blocked"`` and
+  ``"jax_solve"`` backends) on any ``torch.device``: the row scan, the
+  blocked Neumann solve and the triangular solve.
 
 The device backends return device-resident tensors; callers launch a whole
 flush and then fetch every result with **one** :func:`device_get_all` sync.
@@ -29,7 +33,8 @@ __all__ = ["propagate", "propagate_batched", "propagate_dense",
            "device_get_all", "resolve_device", "on_device",
            "kernel_launches", "PROPAGATE_BACKENDS", "DENSE_B_MAX"]
 
-PROPAGATE_BACKENDS = ("np", "torch", "cuda")
+PROPAGATE_BACKENDS = ("np", "torch", "cuda", "torch_ref", "torch_blocked",
+                      "torch_solve")
 
 # bursts up to this length take the row-by-row oracle on the np and torch
 # backends (the doubling GEMMs win above it)
@@ -108,6 +113,14 @@ def propagate_batched(base, mask, *, backend: str = "np", device=None):
     if backend == "cuda":
         return masked_prefix_propagate_cuda(base.contiguous(),
                                             mask.contiguous())
+    if backend == "torch_ref":
+        return ref.masked_prefix_propagate_ref(base, mask)
+    if backend == "torch_blocked":
+        b = base.shape[1]
+        return ref.masked_prefix_propagate_blocked(
+            base, mask, tile=128 if b % 128 == 0 else b)
+    if backend == "torch_solve":
+        return ref.masked_prefix_propagate_solve(base, mask)
     if base.shape[1] >= _FAST_MIN_B and base.dtype.is_floating_point:
         return ref.torch_prefix_propagate_fast_batched(base, mask)
     return ref.torch_prefix_propagate_batched(base, mask)

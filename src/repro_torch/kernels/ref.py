@@ -10,7 +10,7 @@ i.e. ``(I - L) C = B`` with unit diagonal.  ``d`` is the snapshot-basis width
 for HAMLET's shared propagation (coefficient rows), or the number of parallel
 per-query channels for non-shared GRETA propagation.
 
-Two families live here:
+Three families live here:
 
 * the numpy host oracles (``numpy_*`` / ``*_np``) — the ``"np"`` backend of
   :mod:`repro_torch.kernels.ops`, kept operation for operation as the JAX
@@ -20,7 +20,14 @@ Two families live here:
   kernels (``hamlet_propagate.py``, ``hamlet_dense.py``) are held against.
   Each torch twin repeats its numpy oracle's arithmetic (same formulation,
   same operation order where torch allows), so on the CPU the two agree
-  bitwise wherever the values are exact and to rounding elsewhere.
+  bitwise wherever the values are exact and to rounding elsewhere;
+* the twins of the JAX package's ``jnp`` oracles
+  (``masked_prefix_propagate_ref`` / ``_solve`` / ``_blocked`` and
+  :func:`prefix_propagate_dense_f32`) — the ``"torch_ref"``,
+  ``"torch_solve"`` and ``"torch_blocked"`` backends and the lowering
+  proofs' pane step (``repro_torch.launch.dryrun.hamlet_pane_step``).
+  They take any leading batch dims (``[..., b, d]``, the reference's
+  ``vmap``).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import math
 
 import numpy as np
 import torch
+
 
 __all__ = [
     "numpy_prefix_propagate",
@@ -44,6 +52,10 @@ __all__ = [
     "prefix_propagate_dense_torch",
     "prefix_propagate_dense_torch_batched",
     "exact_oracle",
+    "masked_prefix_propagate_ref",
+    "masked_prefix_propagate_solve",
+    "masked_prefix_propagate_blocked",
+    "prefix_propagate_dense_f32",
 ]
 
 
@@ -247,3 +259,134 @@ def prefix_propagate_dense_torch_batched(base: torch.Tensor) -> torch.Tensor:
 def prefix_propagate_dense_torch(base: torch.Tensor) -> torch.Tensor:
     """Unbatched :func:`prefix_propagate_dense_torch_batched`: ``[b, d]``."""
     return prefix_propagate_dense_torch_batched(base[None])[0]
+
+
+# --------------------------------------------------------------------------
+# twins of the JAX package's jnp oracles (the pane step's arithmetic)
+# --------------------------------------------------------------------------
+
+
+def _strict_lower(mask: torch.Tensor, dtype) -> torch.Tensor:
+    return torch.tril(mask, diagonal=-1).to(dtype)
+
+
+def masked_prefix_propagate_ref(base: torch.Tensor,
+                                mask: torch.Tensor) -> torch.Tensor:
+    """Twin of the reference's ``lax.scan`` oracle over rows: row ``i`` is
+    ``base[i] + mask_row_i @ c`` with the whole strictly-lower mask row
+    against ``c``, whose rows ``>= i`` are still zero (so a zero entry
+    against an infinite row gives NaN exactly where the reference does).
+    ``base [..., b, d]``; float or integer dtypes."""
+    b = base.shape[-2]
+    m = _strict_lower(mask, base.dtype)
+    rows = []
+    for i in range(b):
+        done = torch.cat(rows, dim=-2) if rows else base[..., :0, :]
+        c = torch.cat([done, torch.zeros_like(base[..., i:, :])], dim=-2)
+        rows.append(base[..., i:i + 1, :] + m[..., i:i + 1, :] @ c)
+    return torch.cat(rows, dim=-2)
+
+
+def masked_prefix_propagate_solve(base: torch.Tensor,
+                                  mask: torch.Tensor) -> torch.Tensor:
+    """Twin of the reference's float-only oracle: the unit-lower-triangular
+    solve of ``(I - L) C = B``."""
+    b = base.shape[-2]
+    a = (torch.eye(b, dtype=base.dtype, device=base.device)
+         - _strict_lower(mask, base.dtype))
+    return torch.linalg.solve_triangular(a, base, upper=False,
+                                         unitriangular=True)
+
+
+def masked_prefix_propagate_blocked(base: torch.Tensor, mask: torch.Tensor,
+                                    tile: int = 128) -> torch.Tensor:
+    """Twin of the reference's blocked Neumann solve (the Pallas kernel's
+    algorithm): row tiles solved by doubling, ``log2(tile)`` matmuls each,
+    the cross-tile contributions as ``[tile, b] x [b, d]`` products
+    against the rows solved so far (zeros below them, as the reference's
+    ``dynamic_update_slice`` leaves them).  ``b % tile == 0``."""
+    b = base.shape[-2]
+    if b % tile:
+        raise ValueError(f"b = {b} is not a multiple of tile = {tile}")
+    m = _strict_lower(mask, base.dtype)
+    n_iters = max(1, math.ceil(math.log2(tile)))
+    done: list = []
+    for r in range(b // tile):
+        sl = slice(r * tile, (r + 1) * tile)
+        c = torch.cat([*done, torch.zeros_like(base[..., r * tile:, :])],
+                      dim=-2)
+        stripe = m[..., sl, :]
+        x = base[..., sl, :] + stripe @ c
+        P = stripe[..., :, sl]
+        for it in range(n_iters):
+            x = x + P @ x
+            if it + 1 < n_iters:
+                P = P @ P
+        done.append(x)
+    return torch.cat(done, dim=-2)
+
+
+_F32_TINY = 2.0 ** -126     # the least normal float32
+_SCAN_BLOCK = 16            # XLA's CPU cumsum: 16-element blocks
+
+
+def _ftz(t: torch.Tensor) -> torch.Tensor:
+    """Subnormal float32 values flushed to a zero of their sign, as XLA's
+    CPU and TPU arithmetic flushes them."""
+    return torch.where(t.abs() < _F32_TINY, t * 0, t)
+
+
+def _seq_scan(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive prefix sum along ``dim``, one float32 add a step."""
+    out = [v.select(dim, 0)]
+    for k in range(1, v.shape[dim]):
+        out.append(_ftz(out[-1] + v.select(dim, k)))
+    return torch.stack(out, dim=dim)
+
+
+def _xla_cumsum(v: torch.Tensor) -> torch.Tensor:
+    """``jnp.cumsum(v, axis=-2)`` for float32 ``v [..., n, d]`` in the
+    order XLA's CPU compiler sums it: ``n`` zero-padded to 16-element
+    blocks, each block scanned in sequence, and each block's total carried
+    in: the totals' exclusive prefix in sequence for at most 16 blocks,
+    else the totals scanned by the same rule and shifted by one."""
+    n, B = v.shape[-2], _SCAN_BLOCK
+    if n <= B:
+        return _seq_scan(v, -2)
+    nb = -(-n // B)
+    pad = torch.zeros_like(v[..., :nb * B - n, :])
+    blocks = torch.cat([v, pad], dim=-2).unflatten(-2, (nb, B))
+    inner = _seq_scan(blocks, -2)                      # [..., nb, B, d]
+    totals = inner[..., B - 1, :]                      # [..., nb, d]
+    zero = torch.zeros_like(totals[..., :1, :])
+    if nb <= B:
+        carry = _seq_scan(torch.cat([zero, totals[..., :-1, :]], dim=-2),
+                          -2)
+    else:
+        carry = torch.cat([zero, _xla_cumsum(totals)[..., :-1, :]], dim=-2)
+    out = _ftz(inner + carry[..., None, :])
+    return out.flatten(-3, -2)[..., :n, :]
+
+
+def prefix_propagate_dense_f32(base: torch.Tensor) -> torch.Tensor:
+    """Twin of the reference's ``jnp`` dense closed form (its pane step's),
+    float32 as the reference computes it on its own platforms: the weights
+    ``2^-i`` and ``2^i`` in float32 with subnormals flushed (``2^-i`` is 0
+    for i >= 127, ``2^i`` is inf for i >= 128), every product and sum
+    flushed likewise, the cumsum in XLA's CPU order (:func:`_xla_cumsum`).
+    So it equals the reference bitwise, NaN and inf included, where the
+    float64 oracle (:func:`prefix_propagate_dense_np`) stays finite past
+    row 127; the difference is the reference's, pinned in ROADMAP.md.
+    ``base [..., b, d]`` float32."""
+    b = base.shape[-2]
+    i = np.arange(b)
+    down = np.where(i < 127, np.ldexp(1.0, -i), 0.0).astype(np.float32)
+    with np.errstate(over="ignore"):
+        up = np.ldexp(np.float32(1.0), i).astype(np.float32)
+    down, up = (torch.as_tensor(w, device=base.device)[:, None]
+                for w in (down, up))
+    x = _ftz(base)                  # subnormal operands count as zero
+    t = _xla_cumsum(_ftz(down * x))
+    s = _ftz(up * t)
+    return torch.cat([base[..., :1, :], _ftz(x[..., 1:, :] + s[..., :-1, :])],
+                     dim=-2)

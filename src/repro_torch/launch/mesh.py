@@ -2,14 +2,40 @@
 
 Importing this module touches no device and no process group; call
 :func:`make_production_mesh` once ``torch.distributed`` is initialized with
-the mesh's world (one rank a device).
+the mesh's world (one rank a device), or inside :func:`placeholder_world`,
+the world of placeholder ranks the lowering proofs trace on.
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 
-__all__ = ["make_production_mesh", "describe_mesh"]
+__all__ = ["make_production_mesh", "describe_mesh", "placeholder_world"]
+
+
+@contextmanager
+def placeholder_world(n: int):
+    """A world of ``n`` placeholder ranks in this one process, this process
+    being rank 0: torch's fake process group (backend ``"fake"`` on a
+    ``FakeStore``), whose collectives move no data, destroyed on exit.
+    The twin of the reference's ``--xla_force_host_platform_device_count
+    =512``: ``make_production_mesh(device_type="cpu")`` works inside it
+    (with ``n`` 256 or 512), and ``DTensor``s on ``meta`` tensors trace a
+    rank's share of a program without memory.  Refuses to start while a
+    process group is initialized."""
+    import torch.distributed as dist
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized; the "
+                           "placeholder world needs this process to itself")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .partitioning import constrain
+from .partitioning import (constrain, is_dtensor, merge_dims, replicate_like,
+                           split_dim)
 
 __all__ = [
     "rms_norm", "apply_rope", "apply_mrope", "sincos_positions",
@@ -51,7 +52,7 @@ def _rope_angles(positions: torch.Tensor, dims: int,
     exps = torch.arange(0, dims, 2, dtype=torch.float32,
                         device=positions.device) / dims
     freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
-    return positions.float()[..., None] * freqs
+    return positions.float()[..., None] * replicate_like(freqs, positions)
 
 
 def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
@@ -148,16 +149,22 @@ def _sdpa(q, k, v, mask, cfg):
     B, S, H, hd = q.shape
     KV = k.shape[2]
     rep = H // KV
-    q = q.reshape(B, S, KV, rep, hd)
-    logits = torch.einsum("bsgrh,btgh->bgrst", q.float(),
-                          k.float()) / math.sqrt(hd)
+    q = split_dim(q, 2, (KV, rep))
+    if is_dtensor(q):
+        # the query rows ahead of the head group, so that sharded rows
+        # (sequence-parallel attention) lead the dims the product flattens
+        logits = torch.einsum("bsgrh,btgh->bgsrt", q.float(),
+                              k.float()).transpose(2, 3) / math.sqrt(hd)
+    else:
+        logits = torch.einsum("bsgrh,btgh->bgrst", q.float(),
+                              k.float()) / math.sqrt(hd)
     if cfg.attn_logit_softcap:
         c = cfg.attn_logit_softcap
         logits = torch.tanh(logits / c) * c
     logits = torch.where(mask, logits, -1e30)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrst,btgh->bsgrh", w.to(v.dtype).float(), v.float())
-    return out.reshape(B, S, H * hd).to(v.dtype)
+    return merge_dims(out, 2, 4).to(v.dtype)
 
 
 ATTN_Q_CHUNK = 512
@@ -180,25 +187,32 @@ def sdpa_chunked(q, k, v, cfg, mask_fn, q_offset: int = 0,
     B, S, H, hd = q.shape
     T = k.shape[1]
     dev = q.device
+
+    def arange(*a):
+        return replicate_like(torch.arange(*a, device=dev), q)
+
     if S <= chunk:
-        mask = mask_fn(torch.arange(S, device=dev) + q_offset,
-                       torch.arange(T, device=dev))
+        mask = mask_fn(arange(S) + q_offset, arange(T))
         return _sdpa(q, k, v, mask[None, None, None, :, :], cfg)
     assert q_offset == 0, "banded path assumes self-attention alignment"
-    kpos = torch.arange(T, device=dev)
+    kpos = arange(T)
 
     band = None
     if local_window is not None and local_window + chunk < T:
         W = local_window
         band = W + chunk
-        kpad = F.pad(k, (0, 0, 0, 0, W, 0))
-        vpad = F.pad(v, (0, 0, 0, 0, W, 0))
+        # W zero rows in front (a concatenation: DTensor's pad fails in
+        # some torch versions)
+        kpad = torch.cat([torch.zeros_like(k[:, :1]).expand(
+            -1, W, -1, -1), k], dim=1)
+        vpad = torch.cat([torch.zeros_like(v[:, :1]).expand(
+            -1, W, -1, -1), v], dim=1)
 
     # whole chunks stack on a leading axis, as in the reference, whose
     # "attn_chunks" spec keeps each chunk's slice on its shard
     qs = None
     if S % chunk == 0:
-        qs = constrain(q.reshape(B, S // chunk, chunk, H, hd).transpose(0, 1),
+        qs = constrain(split_dim(q, 1, (S // chunk, chunk)).transpose(0, 1),
                        "attn_chunks")
 
     def one(qstart: int, qend: int):
@@ -206,11 +220,11 @@ def sdpa_chunked(q, k, v, cfg, mask_fn, q_offset: int = 0,
         # per-chunk sequence parallelism: the chunk's rows over the model
         # axis (set when head counts do not divide it)
         qc = constrain(qc, "attn_chunk")
-        qpos = torch.arange(qstart, qend, device=dev) + q_offset
+        qpos = arange(qstart, qend) + q_offset
         if band is not None:
             kk = kpad[:, qstart:qstart + band]
             vv = vpad[:, qstart:qstart + band]
-            kp = qstart - W + torch.arange(kk.shape[1], device=dev)
+            kp = qstart - W + arange(kk.shape[1])
             mask = mask_fn(qpos, kp)             # pads land at kp < 0
             return _sdpa(qc, kk, vv, mask[None, None, None, :, :], cfg)
         mask = mask_fn(qpos, kpos)

@@ -41,6 +41,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -50,7 +51,8 @@ from .layers import (MLP, Attention, _sdpa, apply_mrope, apply_rope,
                      sincos_positions)
 from .mamba2 import Mamba2, init_mamba2_state, mamba2_block, mamba2_decode
 from .moe import MoE, moe_block
-from .partitioning import constrain
+from .partitioning import (as_layout, constrain, gather_rows, is_dtensor,
+                           relayout, replicate_like, split_dim)
 from .rwkv6 import RWKV6, init_rwkv6_state, rwkv6_block, rwkv6_decode
 
 __all__ = ["LM", "resolve_device", "init_cache", "loss_fn", "train_step_fn",
@@ -198,10 +200,11 @@ class LM(nn.Module):
         if decode:
             tok = batch["token"]
             pos = batch["pos"]
-            x = self.embed[tok.long()].to(self.dtype)
+            x = _embed(self, tok).to(self.dtype)
             if cfg.enc_dec:
-                table = sincos_positions(_cache_cap(cache), cfg.d_model,
-                                         device=x.device).to(self.dtype)
+                table = replicate_like(
+                    sincos_positions(_cache_cap(cache), cfg.d_model,
+                                     device=x.device).to(self.dtype), x)
                 x = x + table[pos.long()][:, None, :]
                 positions = None
             elif cfg.mrope_sections is not None:
@@ -283,9 +286,9 @@ def _theta(cfg, kind):
 
 
 def _project_kv(ap, h, cfg, kind, positions):
-    B, S, _ = h.shape
-    k = (h @ ap.wk).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ ap.wv).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    heads = (cfg.n_kv_heads, cfg.head_dim)
+    k = split_dim(h @ ap.wk, -1, heads)
+    v = split_dim(h @ ap.wv, -1, heads)
     if cfg.qk_norm:
         k = rms_norm(k, ap.k_norm, cfg.norm_eps)
     if not cfg.enc_dec:
@@ -298,8 +301,7 @@ def _project_kv(ap, h, cfg, kind, positions):
 
 
 def _project_q(ap, h, cfg, kind, positions):
-    B, S, _ = h.shape
-    q = (h @ ap.wq).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    q = split_dim(h @ ap.wq, -1, (cfg.n_heads, cfg.head_dim))
     if cfg.qk_norm:
         q = rms_norm(q, ap.q_norm, cfg.norm_eps)
     if not cfg.enc_dec:
@@ -311,6 +313,30 @@ def _project_q(ap, h, cfg, kind, positions):
     return q
 
 
+def _put_rows(buf, idx, rows) -> None:
+    """``buf[b, idx[b]] = rows[b]`` for every batch row ``b``, in place.  A
+    ``DTensor`` cache (batch and sequence sharded: no ``index_put_``
+    strategy keeps that) takes the same write as a select against each
+    row's one-hot position, every rank rewriting its own shard."""
+    if not is_dtensor(buf):
+        buf[torch.arange(buf.shape[0], device=buf.device), idx] = rows
+        return
+    from torch.distributed.tensor import Replicate
+
+    from ..distributed.comm import redistribute
+
+    t = replicate_like(torch.arange(buf.shape[1], device=buf.device), buf)
+    hit = (t[None, :] == idx[:, None]).reshape(
+        (*buf.shape[:2], *([1] * (buf.ndim - 2))))
+    # both operands in the cache's own layout (a local slice of each), so
+    # that the select moves no cache shard
+    pl = buf.placements
+    hit = redistribute(hit, pl)
+    rows = redistribute(rows[:, None].to(buf.dtype),
+                        [Replicate() if p.is_shard(1) else p for p in pl])
+    buf.copy_(torch.where(hit, rows, buf))
+
+
 def _self_attention(ap, h, cfg, kind, positions, cache, pos, decode, causal):
     """Self attention in three modes: full-sequence, prefill-fill, decode.
     The cache's K/V (and ring positions) are written in place."""
@@ -320,21 +346,21 @@ def _self_attention(ap, h, cfg, kind, positions, cache, pos, decode, causal):
         qpos = pos[:, None] if positions is None else positions
         q = _project_q(ap, h, cfg, akind, qpos)
         k, v = _project_kv(ap, h, cfg, akind, qpos)
-        bidx = torch.arange(h.shape[0], device=dev)
         ck, cv = cache["k"], cache["v"]
         if "pos" in cache:                      # local ring buffer
             span = ck.shape[1]
             slot = pos % span
-            ck[bidx, slot] = k[:, 0]
-            cv[bidx, slot] = v[:, 0]
+            _put_rows(ck, slot, k[:, 0])
+            _put_rows(cv, slot, v[:, 0])
             cp = cache["pos"]
-            cp[bidx, slot] = pos.to(cp.dtype)
+            _put_rows(cp, slot, pos.to(cp.dtype))
             mask = ((cp <= pos[:, None]) & (cp >= 0) &
                     (cp > (pos - cfg.window)[:, None]))
         else:
-            ck[bidx, pos] = k[:, 0]
-            cv[bidx, pos] = v[:, 0]
-            tpos = torch.arange(ck.shape[1], device=dev)[None, :]
+            _put_rows(ck, pos, k[:, 0])
+            _put_rows(cv, pos, v[:, 0])
+            tpos = replicate_like(torch.arange(ck.shape[1], device=dev),
+                                  h)[None, :]
             mask = tpos <= pos[:, None]
         out = _sdpa(q, ck, cv, mask[:, None, None, None, :], cfg)
         return out @ ap.wo
@@ -350,8 +376,8 @@ def _self_attention(ap, h, cfg, kind, positions, cache, pos, decode, causal):
 
     def mask_fn(qpos, kpos):
         qp, kp = qpos[:, None], kpos[None, :]
-        m = (kp <= qp) if causal else torch.ones(
-            (qpos.shape[0], kpos.shape[0]), dtype=torch.bool, device=dev)
+        m = (kp <= qp) if causal else replicate_like(torch.ones(
+            (qpos.shape[0], kpos.shape[0]), dtype=torch.bool, device=dev), h)
         m = m & (kpos >= 0)[None, :]            # banded path left-pads K/V
         if akind == "local":
             m = m & (torch.abs(kp - qp) < cfg.window)
@@ -365,11 +391,12 @@ def _self_attention(ap, h, cfg, kind, positions, cache, pos, decode, causal):
         if "pos" in cache:
             span = cache["k"].shape[1]
             take = min(S, span)
-            idx = torch.arange(S - take, S, device=dev) % span
+            idx = replicate_like(torch.arange(S - take, S, device=dev) % span,
+                                 h)
             cache["k"][:, idx] = k[:, S - take:]
             cache["v"][:, idx] = v[:, S - take:]
-            cache["pos"][:, idx] = torch.arange(
-                S - take, S, dtype=torch.int32, device=dev)[None, :]
+            cache["pos"][:, idx] = replicate_like(torch.arange(
+                S - take, S, dtype=torch.int32, device=dev), h)[None, :]
         else:
             cache["k"][:, :S] = k
             cache["v"][:, :S] = v
@@ -378,35 +405,35 @@ def _self_attention(ap, h, cfg, kind, positions, cache, pos, decode, causal):
 
 def _cross_attention(p, x, cfg, enc_out, cache, decode):
     """Whisper cross attention; caches encoder K/V at prefill."""
-    h = rms_norm(x, p.ln_cross, cfg.norm_eps)
+    h = gather_rows(rms_norm(x, p.ln_cross, cfg.norm_eps))
     B, S, _ = h.shape
-    q = (h @ p.cross.wq).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    q = split_dim(h @ p.cross.wq, -1, (cfg.n_heads, cfg.head_dim))
     if decode:
         xk, xv = cache["xk"], cache["xv"]
-        mask = (torch.arange(xk.shape[1], device=x.device) <
-                cache["x_len"])[None, None, None, None, :]
+        mask = (replicate_like(torch.arange(xk.shape[1], device=x.device),
+                               x) < cache["x_len"])[None, None, None, None, :]
     else:
         T = enc_out.shape[1]
-        xk = (enc_out @ p.cross.wk).reshape(B, T, cfg.n_kv_heads,
-                                            cfg.head_dim)
-        xv = (enc_out @ p.cross.wv).reshape(B, T, cfg.n_kv_heads,
-                                            cfg.head_dim)
+        heads = (cfg.n_kv_heads, cfg.head_dim)
+        xk = split_dim(enc_out @ p.cross.wk, -1, heads)
+        xv = split_dim(enc_out @ p.cross.wv, -1, heads)
         if cache is not None:
             n = min(T, cache["xk"].shape[1])
             cache["xk"][:, :n] = xk[:, :n]
             cache["xv"][:, :n] = xv[:, :n]
             cache["x_len"].fill_(n)
-        mask = torch.ones((1, 1, 1, S, xk.shape[1]), dtype=torch.bool,
-                          device=x.device)
+        mask = replicate_like(torch.ones((1, 1, 1, S, xk.shape[1]),
+                                         dtype=torch.bool, device=x.device),
+                              x)
     out = _sdpa(q, xk, xv, mask, cfg)
-    return x + out @ p.cross.wo
+    return x + as_layout(out @ p.cross.wo, x)
 
 
 def _attn_layer(p, x, cfg, kind, positions, cache, pos, enc_out, decode,
                 causal):
-    h = rms_norm(x, p.ln1, cfg.norm_eps)
-    a = _self_attention(p.attn, h, cfg, kind, positions, cache, pos, decode,
-                        causal)
+    h = gather_rows(rms_norm(x, p.ln1, cfg.norm_eps))
+    a = as_layout(_self_attention(p.attn, h, cfg, kind, positions, cache,
+                                  pos, decode, causal), x)
     if cfg.post_block_norm:
         a = rms_norm(a, p.post_ln1, cfg.norm_eps)
     x = x + a
@@ -415,12 +442,14 @@ def _attn_layer(p, x, cfg, kind, positions, cache, pos, enc_out, decode,
                                 (cache is not None and "xk" in cache)):
         x = _cross_attention(p, x, cfg, enc_out, cache, decode)
 
-    h = rms_norm(x, p.ln2, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = gather_rows(rms_norm(x, p.ln2, cfg.norm_eps))
+    aux = replicate_like(torch.zeros((), dtype=torch.float32,
+                                     device=x.device), x)
     if hasattr(p, "moe"):
         f, aux = moe_block(p.moe, h, cfg)
     else:
         f = mlp_block(p.mlp, h, cfg.act)
+    f = as_layout(f, x)
     if cfg.post_block_norm:
         f = rms_norm(f, p.post_ln2, cfg.norm_eps)
     return x + f, aux
@@ -428,9 +457,10 @@ def _attn_layer(p, x, cfg, kind, positions, cache, pos, enc_out, decode,
 
 def _layer_apply(p, x, cfg, kind, positions, shared_p, cache, pos, enc_out,
                  decode, causal):
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = replicate_like(torch.zeros((), dtype=torch.float32,
+                                      device=x.device), x)
     if kind == "rwkv6":
-        h = rms_norm(x, p.ln, cfg.norm_eps)
+        h = gather_rows(rms_norm(x, p.ln, cfg.norm_eps))
         if decode:
             delta, st = rwkv6_decode(p.rwkv, h, cfg, cache["rwkv_state"])
         else:
@@ -438,9 +468,9 @@ def _layer_apply(p, x, cfg, kind, positions, shared_p, cache, pos, enc_out,
                                     else cache["rwkv_state"])
         if cache is not None:
             cache["rwkv_state"] = st
-        return x + delta, zero
+        return x + as_layout(delta, x), zero
     if kind.startswith("mamba2"):
-        h = rms_norm(x, p.ln, cfg.norm_eps)
+        h = gather_rows(rms_norm(x, p.ln, cfg.norm_eps))
         if decode:
             S, conv = cache["mamba_state"]
             delta, st = mamba2_decode(p.mamba, h, cfg, S, conv)
@@ -452,7 +482,7 @@ def _layer_apply(p, x, cfg, kind, positions, shared_p, cache, pos, enc_out,
                 conv_state=None if st is None else st[1])
         if cache is not None:
             cache["mamba_state"] = st
-        x = x + delta
+        x = x + as_layout(delta, x)
         if kind == "mamba2+shared":
             sub = cache if cache is not None and "k" in cache else None
             return _attn_layer(shared_p, x, cfg, "global", positions, sub,
@@ -491,7 +521,8 @@ def _run_stack(model: LM, x, positions, *, cache=None, pos=None,
         x, aux = run(lo, hi, constrain(x, "act"), aux)  # a group's ends
         return constrain(x, "act"), aux
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = replicate_like(torch.zeros((), dtype=torch.float32,
+                                     device=x.device), x)
     remat = torch.is_grad_enabled() and not decode and cache is None
     for g in range(n_groups):
         if remat:
@@ -505,25 +536,51 @@ def _run_stack(model: LM, x, positions, *, cache=None, pos=None,
 # ------------------------------------------------------------------ forward
 
 
+def _table(model: LM):
+    """The embedding table as each of its uses takes it: on a ``DTensor``
+    table, each use's gradient comes back in the table's own layout, so
+    that the lookup's and the tied head's gradients add shard to shard
+    (some torch versions cannot add them in the layouts they arrive in)."""
+    if not is_dtensor(model.embed):
+        return model.embed
+    return relayout(model.embed, model.embed.placements)
+
+
+def _embed(model: LM, tok):
+    """The embedding rows of ``tok``: ``model.embed[tok]``; for a
+    ``DTensor`` table, ``F.embedding``, whose vocabulary-parallel rule
+    DTensor has forward and backward (its indexing backward fails in some
+    torch versions), the shards' partial rows summed."""
+    if not is_dtensor(model.embed):
+        return model.embed[tok.long()]
+    from torch.distributed.tensor import Replicate
+
+    x = F.embedding(tok.long(), _table(model))
+    return relayout(x, [Replicate() if p.is_partial() else p
+                        for p in x.placements])
+
+
 def _embed_inputs(model: LM, batch: dict):
     cfg, dt = model.cfg, model.dtype
     if cfg.enc_dec:
         tok = batch["tokens"]
-        x = model.embed[tok.long()].to(dt)
-        x = x + sincos_positions(tok.shape[1], cfg.d_model,
-                                 device=x.device).to(dt)[None]
-        positions = torch.arange(tok.shape[1], dtype=torch.int32,
-                                 device=x.device).expand(tok.shape)
-        return x, positions
+        x = _embed(model, tok).to(dt)
+        x = x + replicate_like(sincos_positions(tok.shape[1], cfg.d_model,
+                                                device=x.device).to(dt),
+                               x)[None]
+        positions = replicate_like(torch.arange(
+            tok.shape[1], dtype=torch.int32, device=x.device), x)
+        return x, positions.expand(tok.shape)
     if cfg.frontend == "patches" and "patch_embeds" in batch:
-        te = model.embed[batch["tokens"].long()].to(dt)
+        te = _embed(model, batch["tokens"]).to(dt)
         x = torch.cat([batch["patch_embeds"].to(dt), te], dim=1)
     else:
-        x = model.embed[batch["tokens"].long()].to(dt)
+        x = _embed(model, batch["tokens"]).to(dt)
     B, S = x.shape[:2]
     if cfg.mrope_sections is not None and "positions" in batch:
         return x, batch["positions"]
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    positions = replicate_like(torch.arange(S, dtype=torch.int32,
+                                            device=x.device), x)
     if cfg.mrope_sections is not None:
         # no M-RoPE streams given: every stream counts 0..S-1 (the values
         # the reference reads when it indexes its [B, S] positions as
@@ -534,10 +591,12 @@ def _embed_inputs(model: LM, batch: dict):
 
 def _encode(model: LM, frames):
     cfg, dt = model.cfg, model.dtype
-    x = frames.to(dt) + sincos_positions(frames.shape[1], cfg.d_model,
-                                         device=frames.device).to(dt)[None]
-    positions = torch.arange(frames.shape[1], dtype=torch.int32,
-                             device=frames.device).expand(frames.shape[:2])
+    x = frames.to(dt) + replicate_like(
+        sincos_positions(frames.shape[1], cfg.d_model,
+                         device=frames.device).to(dt), frames)[None]
+    positions = replicate_like(torch.arange(
+        frames.shape[1], dtype=torch.int32, device=frames.device),
+        frames).expand(frames.shape[:2])
     for layer in model.enc.layers:
         x, _ = _layer_apply(layer, x, cfg, "global", positions, None, None,
                             None, None, False, False)
@@ -548,8 +607,8 @@ def _logits(model: LM, x):
     cfg = model.cfg
     head = getattr(model, "lm_head", None)
     if head is None:
-        head = model.embed.T
-    logits = (x @ head).float()
+        head = _table(model).T
+    logits = (gather_rows(x) @ head).float()
     if cfg.final_logit_softcap:
         c = cfg.final_logit_softcap
         logits = torch.tanh(logits / c) * c
@@ -569,7 +628,13 @@ def _ce_chunk(head, xs, ls, softcap):
     if softcap:
         lg = torch.tanh(lg / softcap) * softcap
     lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, ls[..., None].long())[..., 0]
+    if is_dtensor(lg):
+        # the label's logit as a masked sum over the vocabulary: DTensor's
+        # gather from vocabulary shards fails to reduce (torch 2.13)
+        v = replicate_like(torch.arange(lg.shape[-1], device=lg.device), lg)
+        ll = torch.where(v == ls[..., None], lg, 0.0).sum(-1)
+    else:
+        ll = torch.gather(lg, -1, ls[..., None].long())[..., 0]
     return (lse - ll).sum()
 
 
@@ -580,12 +645,14 @@ def _chunked_ce(model: LM, x, labels, chunk: int = CE_CHUNK):
     instead of kept.  One chunk of length S when ``S % chunk != 0``, as in
     the reference."""
     B, S, _ = x.shape
+    x = gather_rows(x)
     if S % chunk:
         chunk = S
     head = getattr(model, "lm_head", None)
     if head is None:
-        head = model.embed.T
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
+        head = _table(model).T
+    total = replicate_like(torch.zeros((), dtype=torch.float32,
+                                       device=x.device), x)
     for s in range(0, S, chunk):
         total = total + checkpoint(
             _ce_chunk, head, x[:, s:s + chunk], labels[:, s:s + chunk],

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import normal_, rms_norm
+from .partitioning import merge_dims, replicate_like, settle, split_dim
 
 __all__ = ["Mamba2", "mamba2_block", "mamba2_decode", "init_mamba2_state"]
 
@@ -99,10 +100,12 @@ def _ssd_chunked(xh, Bm, Cm, dt, A_log, S0):
             dt.transpose(1, 2).float())                     # [B, H, T]
     u = xh * dt[..., None].to(xh.dtype)                     # dt-weighted
     m_dtype = xh.dtype if xh.dtype == torch.bfloat16 else torch.float32
-    causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
-                                   device=xh.device))
+    causal = replicate_like(torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                                  device=xh.device)), xh)
 
     S = S0.float()
+    # the operands' partial sums reduced once, not chunk by chunk
+    u, Bm, Cm, loga, S = settle(u, Bm, Cm, loga, S)
     ys = []
     for c in range(nC):
         sl = slice(c * L, (c + 1) * L)
@@ -134,12 +137,13 @@ def mamba2_block(p: Mamba2, u: torch.Tensor, cfg, state=None,
     hd = cfg.d_inner // H
     z, x, Bm, Cm, dt = _split_proj(p, u, cfg)
     x, conv_state = _causal_conv(x, p.conv_w, conv_state)
-    xh = x.reshape(B, T, H, hd)
-    S0 = (torch.zeros((B, H, hd, st), dtype=torch.float32, device=u.device)
+    xh = split_dim(x, -1, (H, hd))
+    S0 = (replicate_like(torch.zeros((B, H, hd, st), dtype=torch.float32,
+                                     device=u.device), u)
           if state is None else state)
     y, S = _ssd_chunked(xh, Bm, Cm, dt, p.A_log, S0)
     y = y + xh.float() * p.D[None, None, :, None]
-    y = y.reshape(B, T, cfg.d_inner).to(u.dtype)
+    y = merge_dims(y, 2, 3).to(u.dtype)
     y = rms_norm(y, p.norm, cfg.norm_eps) * F.silu(z)
     return y @ p.out_proj, (S, conv_state)
 
@@ -160,7 +164,7 @@ def mamba2_decode(p: Mamba2, u: torch.Tensor, cfg, state, conv_state):
     hd = cfg.d_inner // H
     z, x, Bm, Cm, dt = _split_proj(p, u, cfg)
     x, conv_state = _causal_conv(x, p.conv_w, conv_state.to(x.dtype))
-    xh = x.reshape(B, H, hd)
+    xh = split_dim(x, -1, (H, hd))[:, 0]
     dt1 = dt[:, 0]                                          # [B, H]
     a = torch.exp(-torch.exp(p.A_log)[None] * dt1)          # [B, H]
     upd = torch.einsum("bhp,bs->bhps", xh.float() * dt1[..., None],
@@ -168,6 +172,6 @@ def mamba2_decode(p: Mamba2, u: torch.Tensor, cfg, state, conv_state):
     S = state * a[..., None, None] + upd
     y = torch.einsum("bhps,bs->bhp", S, Cm[:, 0].float())
     y = y + xh.float() * p.D[None, :, None]
-    y = y.reshape(B, 1, cfg.d_inner).to(u.dtype)
+    y = merge_dims(y, 1, 2)[:, None].to(u.dtype)
     y = rms_norm(y, p.norm, cfg.norm_eps) * F.silu(z)
     return y @ p.out_proj, (S, conv_state)

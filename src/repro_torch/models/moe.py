@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import MLP, mlp_block, normal_
+from .partitioning import replicate_like
 
 __all__ = ["MoE", "moe_block"]
 
@@ -67,9 +68,13 @@ def _dispatch_group(p: MoE, x: torch.Tensor, cfg):
 
     slot = torch.where(keep, e_flat * cap + pos,
                        torch.full_like(pos, E * cap))           # overflow row
-    tok = torch.arange(N, device=x.device).repeat_interleave(k)
-    buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[slot[keep]] = x[tok[keep]]                # one token per kept slot
+    tok = replicate_like(torch.arange(N, device=x.device), x)
+    tok = tok.repeat_interleave(k)
+    buf = replicate_like(torch.zeros((E * cap + 1, d), dtype=x.dtype,
+                                     device=x.device), x)
+    # one token per kept slot; every dropped token lands on the overflow
+    # row, which is cut off (shapes stay static: no boolean indexing)
+    buf[slot] = x[tok]
     buf = buf[:-1].reshape(E, cap, d)
 
     h = F.silu(torch.einsum("ecd,edf->ecf", buf, p.w_gate))
@@ -79,7 +84,8 @@ def _dispatch_group(p: MoE, x: torch.Tensor, cfg):
     gathered = out.reshape(E * cap, d)
     y_slots = torch.where(keep[:, None],
                           gathered[torch.clamp(slot, 0, E * cap - 1)],
-                          torch.zeros((), dtype=x.dtype, device=x.device))
+                          replicate_like(torch.zeros((), dtype=x.dtype,
+                                                     device=x.device), x))
     y_slots = (y_slots * w.reshape(N * k, 1).to(x.dtype)).reshape(N, k, d)
     y = y_slots[:, 0]
     for j in range(1, k):                         # slot order, storage type

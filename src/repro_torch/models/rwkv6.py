@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import normal_, rms_norm
+from .partitioning import align, merge_dims, replicate_like, split_dim
 
 __all__ = ["RWKV6", "rwkv6_block", "rwkv6_decode", "init_rwkv6_state"]
 
@@ -80,10 +81,14 @@ def _wkv_chunked(r, k, v, logw, u, H, hd):
     L = min(CHUNK, T)
     assert T % L == 0
     nC = T // L
-    strict = torch.tril(torch.ones((L, L), dtype=torch.bool,
-                                   device=r.device), diagonal=-1)
+    # one layout for the four before the scan, not one a chunk
+    r, k, v, logw = align(r, k, v, logw)
+    strict = replicate_like(torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                                  device=r.device),
+                                       diagonal=-1), r)
 
-    S = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    S = replicate_like(torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                                   device=r.device), r)
     ys = []
     for c in range(nC):
         sl = slice(c * L, (c + 1) * L)
@@ -116,12 +121,12 @@ def _projections(p: RWKV6, x, last, cfg):
     xv = _shift(x, p.mu[2], last)
     xg = _shift(x, p.mu[3], last)
     xw = _shift(x, p.mu[4], last)
-    r = (xr @ p.wr).reshape(B, T, H, hd).float()
-    k = (xk @ p.wk).reshape(B, T, H, hd).float()
-    v = (xv @ p.wv).reshape(B, T, H, hd).float()
+    r = split_dim(xr @ p.wr, -1, (H, hd)).float()
+    k = split_dim(xk @ p.wk, -1, (H, hd)).float()
+    v = split_dim(xv @ p.wv, -1, (H, hd)).float()
     g = F.silu(xg @ p.wg)
     logw = -torch.exp(p.w0 + (torch.tanh(xw @ p.w1) @ p.w2).float())
-    logw = logw.reshape(B, T, H, hd)
+    logw = split_dim(logw, -1, (H, hd))
     return r, k, v, g, logw
 
 
@@ -137,11 +142,11 @@ def rwkv6_block(p: RWKV6, x: torch.Tensor, cfg, state=None):
     B, T, d = x.shape
     hd = cfg.rwkv_head_size
     H = d // hd
-    zeros = torch.zeros((B, d), dtype=x.dtype, device=x.device)
+    zeros = torch.zeros_like(x[:, 0, :])
     last = zeros if state is None else state[0]
     r, k, v, g, logw = _projections(p, x, last, cfg)
     y, S = _wkv_chunked(r, k, v, logw, p.u, H, hd)
-    y = y.reshape(B, T, d).to(x.dtype)
+    y = merge_dims(y, 2, 3).to(x.dtype)
     y = rms_norm(y, p.ln_x, cfg.norm_eps) * g
     out = y @ p.wo
 
@@ -175,7 +180,7 @@ def rwkv6_decode(p: RWKV6, x: torch.Tensor, cfg, state):
     kv = torch.einsum("bhc,bhd->bhcd", k1, v1)
     y = torch.einsum("bhc,bhcd->bhd", r1, S + p.u[..., None] * kv)
     S = S * w1[..., None] + kv
-    y = y.reshape(B, 1, d).to(x.dtype)
+    y = merge_dims(y, 1, 2)[:, None].to(x.dtype)
     y = rms_norm(y, p.ln_x, cfg.norm_eps) * g
     out = y @ p.wo
 

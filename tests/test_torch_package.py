@@ -84,7 +84,8 @@ for pkg, mods in (("overload", ("config", "controller", "ingress", "shedding",
                   ("distributed", ("compression", "pipeline", "comm",
                                    "ranks")),
                   ("models", ("partitioning",)),
-                  ("launch", ("mesh",))):
+                  ("launch", ("mesh",)),
+                  ("launch", ("dryrun", "hlo_analysis"))):
     for m in mods:
         assert f"repro_torch.{pkg}.{m}" in names, (pkg, m)
 """
@@ -119,6 +120,34 @@ print("ok")
     r = _run(["-c", code])
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_lowering_proofs_import_without_jax_or_repro():
+    """The lowering proofs (``launch.dryrun``, ``launch.hlo_analysis``,
+    ``configs.input_specs``) import in an interpreter where ``jax`` and
+    ``repro`` cannot be imported, and importing them initializes no process
+    group (the dry run opens its placeholder world itself)."""
+    code = """
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"):
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, Block())
+import torch.distributed as dist
+from repro_torch.configs import input_specs, get_config
+from repro_torch.launch import dryrun, hlo_analysis
+from repro_torch.launch.hlo_analysis import CollectiveCounter, HloReport
+assert not dist.is_initialized()
+specs = input_specs(get_config("gemma2-2b"), "train_4k")
+assert {k: tuple(v.shape) for k, v in specs.items()} == {
+    "tokens": (256, 4096), "labels": (256, 4096)}
+print("ok", dryrun.ARTIFACT_DIR.name)
+"""
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok dryrun"
 
 
 def test_lm_substrate_imports_without_jax_or_repro():
