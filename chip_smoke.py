@@ -115,7 +115,23 @@ Phases, in order; a failure in any of them exits non-zero:
               (2e-3); ``ServeEngine`` with 8 heavy-tailed requests in two
               gangs; batched against sequential first-token logits in f32.
               Sets ``allow_bf16_reduced_precision_reduction = False``.
-12. train   — the LM substrate's training path (``models.lm``'s loss and
+12. width   — the serving path of the eight architectures that fit one
+              card (whisper-tiny, h2o-danube-1.8b, gemma3-4b, zamba2-7b,
+              olmoe-1b-7b, rwkv6-7b, qwen2-vl-7b, starcoder2-15b, in that
+              order) at their published configurations, bf16, seed 0,
+              through ``launch.serve``'s ``generate``: batch 2, prompts of
+              2,048 tokens, 16 tokens, after a warm-up (parameters, weight
+              bytes, prefill ms, decode ms per step p50/min/max, tok/s,
+              peak memory, every logit finite) and one decode step under
+              the profiler; then at full width, float32, the depth cut to
+              the fewest whole layer cycles with at least 4 layers and MoE
+              dropless, every logit ``generate`` chose a token from against
+              the teacher-forced forward over the prompt and the fed-back
+              tokens (2e-3; zamba2-7b 1.2e-2, ``RTOL_WIDTH``), and that
+              forward's first row alone against the batch's (printed);
+              each model freed before the next;
+              llama4-maverick left out (its weights outgrow the card);
+13. train   — the LM substrate's training path (``models.lm``'s loss and
               train step, ``train/``, ``distributed/checkpoint.py``; plain
               torch ops and autograd, no TPU kernel): the ten smoke
               architectures in f32 on the card against the CPU (loss rel
@@ -130,7 +146,7 @@ Phases, in order; a failure in any of them exits non-zero:
               steps (step ms, tokens/s, peak memory, every loss, the
               global gradient norm, all finite; the bf16 and f32 FLOPs of
               a step at the data sheet's peaks as its bound).
-13. dist    — the distributed substrate (``repro_torch.distributed``:
+14. dist    — the distributed substrate (``repro_torch.distributed``:
               compression, pipeline, mesh rules, checkpoint resharding;
               torch ops and ``torch.distributed``): four gloo ranks spawned
               on a ``file://`` store, all on cuda:0 (NCCL refuses two ranks
@@ -155,12 +171,16 @@ Phases, in order; a failure in any of them exits non-zero:
               CPU, its parameters within 5e-3 of ``train_step_fn``'s from
               the same start; three timed steps (step ms p50, tokens/s,
               peak memory, losses and error norms, all finite).
-14. lower   — the lowering proofs (``repro_torch.launch.dryrun``,
+15. lower   — the lowering proofs (``repro_torch.launch.dryrun``,
               ``launch.hlo_analysis``; traces of ``meta`` tensors on
               placeholder worlds, run in this process, no GPU needed): the
-              HAMLET pane step on the (16, 16) and (2, 16, 16) meshes and
+              HAMLET pane step on the (16, 16) and (2, 16, 16) meshes,
               gemma2-2b's prefill_32k and train_4k on the (16, 16) mesh,
-              each record printed and ``ok``; the proof's FLOPs of
+              and there one cheap cell of each architecture whose trace
+              runs an einsum or the MoE dispatch per shard (olmoe-1b-7b's
+              prefill_32k and decode_32k, llama4-maverick's decode_32k,
+              whisper-tiny's train_4k, zamba2-7b's and rwkv6-7b's
+              decode_32k), each record printed and ``ok``; the proof's FLOPs of
               gemma2-2b's train step at batch 2 x 5,120 on a 1-rank world
               equal to ``FlopCounterMode`` over one real step on the card
               and within 1% of ``train_flops``; the pane step's body at
@@ -2257,33 +2277,37 @@ def lm_smoke(torch, np, dev) -> dict:
     return out
 
 
-def lm_decode_profile(torch, np, model, steps: int = 4) -> dict:
-    """``steps`` decode steps of the full-width batch (after a prefill of
-    ``LM_PROMPT`` tokens) under ``torch.profiler``: wall per step, the
-    device's busy share of it, kernels per step and the costliest kernels
-    by device time."""
+def lm_decode_profile(torch, np, model, steps: int = 4,
+                      batch: int = LM_BATCH, prompt: int = LM_PROMPT,
+                      tag: str = "[lm]") -> dict:
+    """``steps`` decode steps of a ``batch`` (by default the full-width
+    batch, after a prefill of ``prompt`` tokens) under ``torch.profiler``:
+    wall per step, the device's busy share of it, kernels per step and the
+    costliest kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import decode_fn, init_cache, prefill_fn
 
     cfg, dev = model.cfg, model.device
-    batch = _on(torch, np, launch_serve.prompts(cfg, LM_BATCH, LM_PROMPT),
-                dev)
+    inputs = _on(torch, np, launch_serve.prompts(cfg, batch, prompt), dev)
     with torch.inference_mode():
-        cache = init_cache(cfg, LM_BATCH, LM_PROMPT + steps, device=dev,
+        cache = init_cache(cfg, batch, prompt + steps, device=dev,
                            dtype=model.dtype)
-        logits, cache = prefill_fn(with_cache=True)(model, cache, batch)
+        logits, cache = prefill_fn(with_cache=True)(model, cache, inputs)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(steps):
-                logits, cache = decode_fn()(model, cache, {
-                    "token": nxt[:, None], "pos": torch.full(
-                        (LM_BATCH,), LM_PROMPT + i, dtype=torch.int32,
-                        device=dev)})
+                step = {"token": nxt[:, None], "pos": torch.full(
+                    (batch,), prompt + i, dtype=torch.int32, device=dev)}
+                if cfg.mrope_sections:
+                    step["positions"] = torch.full(
+                        (3, batch, 1), prompt + i, dtype=torch.int32,
+                        device=dev)
+                logits, cache = decode_fn()(model, cache, step)
                 nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -2294,12 +2318,12 @@ def lm_decode_profile(torch, np, model, steps: int = 4) -> dict:
     n_kern = sum(ev.count for ev in kern)
     top = [{"name": ev.key[:70], "calls": ev.count,
             "ms": ev.self_device_time_total / 1e3} for ev in kern[:6]]
-    log(f"[lm] decode profile ({steps} steps, batch {LM_BATCH}, context "
-        f"{LM_PROMPT}): wall {wall / steps * 1e3:.2f} ms/step under the "
+    log(f"{tag} decode profile ({steps} steps, batch {batch}, context "
+        f"{prompt}): wall {wall / steps * 1e3:.2f} ms/step under the "
         f"profiler, device {dev_ms / steps:.3f} ms/step (busy "
         f"{dev_ms / (wall * 1e3):.1%}), {n_kern / steps:.0f} kernels/step")
     for t in top:
-        log(f"[lm]   {t['ms'] / steps:.3f} ms/step x{t['calls'] // steps}"
+        log(f"{tag}   {t['ms'] / steps:.3f} ms/step x{t['calls'] // steps}"
             f"  {t['name']}")
     return {"wall_ms_per_step": wall / steps * 1e3,
             "device_ms_per_step": dev_ms / steps,
@@ -2463,6 +2487,135 @@ def phase_lm(torch, np) -> dict:
     torch.cuda.empty_cache()
     out["launches"] = _launches()
     log(f"[lm] kernel launches over the phase (none on this path): "
+        f"{out['launches']}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# serving at the published widths: the other architectures through launch.serve
+# --------------------------------------------------------------------------
+
+# smallest first, so that a fault shows before the long runs
+WIDTH_ARCHS = ("whisper-tiny", "h2o-danube-1.8b", "gemma3-4b", "zamba2-7b",
+               "olmoe-1b-7b", "rwkv6-7b", "qwen2-vl-7b", "starcoder2-15b")
+WIDTH_LEFT_OUT = "llama4-maverick-400b-a17b"    # its weights outgrow a card
+WIDTH_BATCH, WIDTH_PROMPT, WIDTH_GEN = 2, 2_048, 16
+# 2,048 = 16 of Mamba2's 128-token chunks and 32 of RWKV-6's 64-token ones
+WIDTH_DEPTH = 4         # the f32 check's depth: the fewest whole layer
+                        # cycles that hold at least 4 layers
+RTOL_WIDTH = {"zamba2-7b": 1.2e-2}  # the f32 check's bound where it is not
+# RTOL_LM_DECODE: zamba2's random Mamba2 stack amplifies float32 rounding
+# at its width.  Decode against forward 5.794e-3 on an H100 80GB HBM3 at
+# 700 W, where the same forward moves 5.525e-3 when its first row runs
+# alone (other GEMM shapes); about twice the measured error.
+
+
+def width_arch(torch, np, arch: str, dev) -> dict:
+    """One architecture at its published configuration through
+    ``launch.serve``: bf16, seed 0, a warm-up ``generate`` (the full
+    prompts, 2 tokens), then ``generate`` of ``WIDTH_GEN`` tokens for
+    ``WIDTH_BATCH`` prompts of ``WIDTH_PROMPT`` tokens (whisper's frames
+    as long as its prompt), timed; one decode step under the profiler; then
+    the float32 check at full width and cut depth (MoE dropless): each
+    logit ``generate`` chose a token from, against the teacher-forced
+    forward over the prompt and the fed-back tokens (``RTOL_LM_DECODE``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import LM
+
+    cfg = get_config(arch)
+    model = LM(cfg, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    inputs = launch_serve.prompts(cfg, WIDTH_BATCH, WIDTH_PROMPT)
+    launch_serve.generate(model, inputs, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = launch_serve.generate(model, inputs, WIDTH_GEN)
+    peak = torch.cuda.max_memory_allocated()
+    dec_ms = sorted(t * 1e3 for t in res["decode_s"])
+    p50 = statistics.median(dec_ms)
+    log(f"[width] {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}) bf16: {n_params:,} parameters, "
+        f"{w_bytes / 1e9:.3f} GB of weights; batch {WIDTH_BATCH}, prompt "
+        f"{WIDTH_PROMPT}, gen {WIDTH_GEN}: prefill "
+        f"{res['prefill_s'] * 1e3:.1f} ms, decode p50 {p50:.2f} ms/step "
+        f"(min {dec_ms[0]:.2f}, max {dec_ms[-1]:.2f}; weight-read bound "
+        f"{w_bytes / PEAK_BYTES_S * 1e3:.3f} ms), {res['tok_per_s']:.1f} "
+        f"tok/s over {res['wall_s']:.3f} s; peak memory {peak / 1e9:.3f} "
+        f"GB; logits finite {res['finite']}")
+    if not res["finite"] or res["tokens"].shape != (WIDTH_BATCH, WIDTH_GEN):
+        fail(f"width {arch}: finite={res['finite']}, tokens "
+             f"{res['tokens'].shape}")
+    out = {"params": n_params, "weight_bytes": w_bytes, "peak_bytes": peak,
+           "prefill_ms": res["prefill_s"] * 1e3, "decode_ms_p50": p50,
+           "decode_ms_min": dec_ms[0], "decode_ms_max": dec_ms[-1],
+           "tok_per_s": res["tok_per_s"], "wall_s": res["wall_s"],
+           "finite": res["finite"],
+           "profile": lm_decode_profile(torch, np, model, steps=1,
+                                        batch=WIDTH_BATCH,
+                                        prompt=WIDTH_PROMPT,
+                                        tag=f"[width] {arch}")}
+    del model
+    torch.cuda.empty_cache()
+
+    cut = launch_serve.dropless(launch_serve.cut_depth(cfg, WIDTH_DEPTH))
+    model = LM(cut, device=dev, dtype="float32", seed=0)
+    res = launch_serve.generate(model, inputs, WIDTH_GEN, keep_logits=True)
+    want = launch_serve.teacher_forced(model, inputs, res["tokens"])
+    e = _lm_err(np, res["logits"], want)
+    # the same forward, its first row alone: how far float32 rounding in
+    # another order (other GEMM shapes) moves these logits
+    alone = launch_serve.teacher_forced(
+        model, {k: v[:1] for k, v in inputs.items()}, res["tokens"][:1])
+    e_order = _lm_err(np, alone, want[:1])
+    bound = RTOL_WIDTH.get(arch, RTOL_LM_DECODE)
+    log(f"[width] {arch} f32 at {cut.n_layers} of {cfg.n_layers} layers, "
+        f"full width, capacity factor {cut.capacity_factor:g}: "
+        f"{WIDTH_GEN} decoded positions x {WIDTH_BATCH} against "
+        f"the teacher-forced forward over {WIDTH_PROMPT + WIDTH_GEN - 1} "
+        f"tokens (padded to a multiple of "
+        f"{launch_serve.seq_multiple(cfg)}): max rel err {e:.3e} (bound "
+        f"{bound:g}); the forward of row 0 alone against the batch's "
+        f"{e_order:.3e}")
+    if not (e < bound and res["finite"]):
+        fail(f"width {arch}: f32 decode against forward {e:.3e}")
+    out["f32_check"] = {"layers": cut.n_layers, "err": e, "bound": bound,
+                        "row_alone_err": e_order}
+    del model, res, want, alone
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_width(torch, np) -> dict:
+    """The serving path of every architecture that fits one card, at its
+    published width (``WIDTH_ARCHS``, smallest first; no TPU kernel: plain
+    torch ops), each through :func:`width_arch`, its memory freed before
+    the next; llama4-maverick is left out (its bf16 weights, counted on
+    the meta device, do not fit) and stays traced only.  Sets
+    ``allow_bf16_reduced_precision_reduction = False`` as the ``lm``
+    phase does."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device(DEVICE)
+    fns = _kernel_fns()
+    _reset(*fns.values())
+    big = LM(get_config(WIDTH_LEFT_OUT), device="meta")
+    left = sum(p.numel() * p.element_size() for p in big.parameters())
+    del big
+    card = torch.cuda.get_device_properties(0).total_memory
+    log(f"[width] {WIDTH_LEFT_OUT} left out: {left / 1e9:.1f} GB of bf16 "
+        f"weights against the card's {card / 1e9:.1f} GB (traced only)")
+    out = {"left_out": {"arch": WIDTH_LEFT_OUT, "weight_bytes": left}}
+    for arch in WIDTH_ARCHS:
+        t0 = time.perf_counter()
+        out[arch] = width_arch(torch, np, arch, dev)
+        out[arch]["arch_wall_s"] = time.perf_counter() - t0
+        log(f"[width] {arch}: {out[arch]['arch_wall_s']:.1f} s")
+    out["launches"] = _launches()
+    log(f"[width] kernel launches over the phase (none on this path): "
         f"{out['launches']}")
     return out
 
@@ -3232,6 +3385,16 @@ def phase_dist(torch, np, main_res) -> dict:
 # --------------------------------------------------------------------------
 
 LOWER_CELLS = ("prefill_32k", "train_4k")   # gemma2-2b on the (16, 16) mesh
+# one cell of each architecture whose trace needs the per-shard einsum or
+# MoE dispatch (the card's older DTensor refused them before), the cheap
+# ones: olmoe's prefill shards its 16 KV heads 16 ways and runs the MoE
+# dispatch per sequence; whisper's train step runs them backwards
+LOWER_REPAIRED = (("olmoe-1b-7b", "prefill_32k"),
+                  ("olmoe-1b-7b", "decode_32k"),
+                  ("llama4-maverick-400b-a17b", "decode_32k"),
+                  ("whisper-tiny", "train_4k"),
+                  ("zamba2-7b", "decode_32k"),
+                  ("rwkv6-7b", "decode_32k"))
 PANE_DP = 16            # the card's pane step: the single pod's burst split
 RTOL_PANE = 1e-4        # finite pane-step entries, twin against kernel,
                         # f32: |a - b| <= RTOL_PANE * (1 + |b|) (the blocked
@@ -3274,9 +3437,10 @@ def _pane_held(np, what: str, twin, kernel, oracle) -> dict:
 
 
 def lower_traces(torch) -> dict:
-    """The pane step's proof on both production meshes and gemma2-2b's
-    ``LOWER_CELLS`` on the single pod's, each in its own placeholder
-    world; every record printed, any status but ``ok`` fails."""
+    """The pane step's proof on both production meshes, gemma2-2b's
+    ``LOWER_CELLS`` and the ``LOWER_REPAIRED`` cells on the single pod's,
+    each mesh in its own placeholder world; every record printed, any
+    status but ``ok`` fails."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh, \
         placeholder_world
@@ -3289,6 +3453,8 @@ def lower_traces(torch) -> dict:
             if not multi:
                 recs += [dryrun.lower_cell(LM_ARCH, c, mesh)
                          for c in LOWER_CELLS]
+                recs += [dryrun.lower_cell(a, c, mesh)
+                         for a, c in LOWER_REPAIRED]
     for r in recs:
         log(f"[lower] {json.dumps(r)}")
         if r["status"] != "ok":
@@ -3470,6 +3636,9 @@ def main() -> None:
     lm_res = phase_lm(torch, np)
     log(f"[lm] phase wall {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
+    width_res = phase_width(torch, np)
+    log(f"[width] phase wall {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     train_res = phase_train(torch, np)
     log(f"[train] phase wall {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -3496,6 +3665,7 @@ def main() -> None:
         e["shards_launches"] = shards_res["launches"][name]
         e["serve_launches"] = serve_res["launches"][name]
         e["lm_launches"] = lm_res["launches"][name]
+        e["width_launches"] = width_res["launches"][name]
         e["train_launches"] = train_res["launches"][name]
         e["dist_launches"] = dist_res["launches"][name]
         e["lower_launches"] = lower_res["launches"][name]
@@ -3509,7 +3679,8 @@ def main() -> None:
                                     ("finite_cut", "large_finite", "paper")},
                       "obs": obs_res, "stream": stream_res,
                       "shards": shards_res, "serve": serve_res,
-                      "lm": lm_res, "train": train_res, "dist": dist_res,
+                      "lm": lm_res, "width": width_res,
+                      "train": train_res, "dist": dist_res,
                       "lower": lower_res},
                      default=str), flush=True)
     print(card, flush=True)

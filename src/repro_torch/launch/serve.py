@@ -13,16 +13,20 @@ device synchronised, and every logit is checked to be finite.
 from __future__ import annotations
 
 import argparse
+import math
 import statistics
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
 
 from ..configs import get_config, reduce_for_smoke
+from ..models import mamba2, rwkv6
 from ..models.lm import LM, decode_fn, init_cache, prefill_fn, resolve_device
 
-__all__ = ["prompts", "generate", "parse_args", "main"]
+__all__ = ["prompts", "generate", "seq_multiple", "cut_depth", "dropless",
+           "teacher_forced", "parse_args", "main"]
 
 
 def prompts(cfg, batch: int, prompt_len: int, seed: int = 0) -> dict:
@@ -43,12 +47,15 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def generate(model: LM, inputs: dict, gen: int) -> dict:
+def generate(model: LM, inputs: dict, gen: int,
+             keep_logits: bool = False) -> dict:
     """Greedy generation of ``gen`` tokens for each prompt of ``inputs``
     (:func:`prompts`): one prefill with a cache of ``prompt_len + gen``
     slots, then ``gen - 1`` decode steps.  Returns the tokens ``[B, gen]``,
     the prefill's and each decode step's seconds (device synchronised),
-    the wall, tokens/s and whether every logit was finite."""
+    the wall, tokens/s and whether every logit was finite; with
+    ``keep_logits``, also ``logits`` ``[B, gen, vocab]`` (float32, on the
+    model's device): the logits each token was chosen from."""
     cfg, dev = model.cfg, model.device
     B, Lp = inputs["tokens"].shape
     batch = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
@@ -61,6 +68,7 @@ def generate(model: LM, inputs: dict, gen: int) -> dict:
         logits, cache = prefill(model, cache, batch)
         finite = torch.isfinite(logits).all()
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        kept = [logits.float()] if keep_logits else None
         _sync(dev)
         prefill_s = time.perf_counter() - t0
         out, step_s = [nxt], []
@@ -75,14 +83,75 @@ def generate(model: LM, inputs: dict, gen: int) -> dict:
             logits, cache = decode(model, cache, step)
             finite &= torch.isfinite(logits).all()
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            if keep_logits:
+                kept.append(logits.float())
             out.append(nxt)
             _sync(dev)
             step_s.append(time.perf_counter() - t1)
         wall = time.perf_counter() - t0
         tokens = torch.stack(out, dim=1).cpu().numpy()
-    return {"tokens": tokens, "prefill_s": prefill_s, "decode_s": step_s,
-            "wall_s": wall, "tok_per_s": B * gen / wall,
-            "finite": bool(finite)}
+    res = {"tokens": tokens, "prefill_s": prefill_s, "decode_s": step_s,
+           "wall_s": wall, "tok_per_s": B * gen / wall,
+           "finite": bool(finite)}
+    if keep_logits:
+        res["logits"] = torch.stack(kept, dim=1)
+    return res
+
+
+def seq_multiple(cfg) -> int:
+    """What a prompt's length must be a multiple of once it is longer than
+    one chunk: Mamba2's and RWKV-6's chunk lengths where the config has
+    such layers (their chunked prefill requires whole chunks), else 1."""
+    kinds = cfg.layer_kinds()
+    m = 1
+    if any(k.startswith("mamba2") for k in kinds):
+        m = math.lcm(m, mamba2.CHUNK)
+    if "rwkv6" in kinds:
+        m = math.lcm(m, rwkv6.CHUNK)
+    return m
+
+
+def cut_depth(cfg, min_layers: int = 4):
+    """``cfg`` cut to the fewest whole layer cycles that hold at least
+    ``min_layers`` layers (zamba2's cycle ends in its shared attention
+    block), or left whole where it has no more; widths unchanged."""
+    n = len(cfg.attn_pattern)
+    return replace(cfg, n_layers=min(cfg.n_layers,
+                                     n * math.ceil(min_layers / n)))
+
+
+def dropless(cfg):
+    """``cfg`` with an MoE capacity factor of ``n_experts / top_k``, so
+    that every expert can take all of a dispatch group's tokens and none
+    is dropped (``cfg`` itself without experts).  A decode step dispatches
+    the batch as one group and a forward each sequence, so with a smaller
+    factor the two drop different tokens, as the reference does."""
+    if not cfg.n_experts:
+        return cfg
+    return replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def teacher_forced(model: LM, inputs: dict, tokens) -> torch.Tensor:
+    """The forward's float32 logits ``[B, G, vocab]`` at the positions
+    :func:`generate` read its ``G`` logits from (the prompt's last, then
+    each fed-back token's): one forward over the prompt followed by
+    ``tokens[:, :-1]`` (``tokens`` ``[B, G]``, the greedy tokens),
+    right-padded with token 0 to a multiple of :func:`seq_multiple`.  The
+    forward is causal, so the pad changes no compared position; an
+    encoder-decoder's ``frames`` go in as they are."""
+    cfg, dev = model.cfg, model.device
+    B, Lp = inputs["tokens"].shape
+    G = tokens.shape[1]
+    toks = np.concatenate([inputs["tokens"], tokens[:, :-1]], axis=1)
+    m = seq_multiple(cfg)
+    pad = -toks.shape[1] % m if toks.shape[1] > m else 0
+    toks = np.pad(toks, ((0, 0), (0, pad))).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    if cfg.enc_dec:
+        batch["frames"] = torch.from_numpy(inputs["frames"]).to(dev)
+    with torch.inference_mode():
+        logits, _, _ = model(batch)
+    return logits[:, Lp - 1:Lp - 1 + G].float()
 
 
 def parse_args(argv=None) -> argparse.Namespace:

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .partitioning import (constrain, is_dtensor, merge_dims, replicate_like,
-                           split_dim)
+                           einsum_needs_shards, shard_einsum, split_dim)
 
 __all__ = [
     "rms_norm", "apply_rope", "apply_mrope", "sincos_positions",
@@ -150,20 +150,25 @@ def _sdpa(q, k, v, mask, cfg):
     KV = k.shape[2]
     rep = H // KV
     q = split_dim(q, 2, (KV, rep))
-    if is_dtensor(q):
+    qf, kf = q.float(), k.float()
+    if is_dtensor(q) and (any(p.is_shard(1) for p in q.placements) or not
+                          einsum_needs_shards("bsgrh,btgh->bgrst", qf, kf)):
         # the query rows ahead of the head group, so that sharded rows
         # (sequence-parallel attention) lead the dims the product flattens
-        logits = torch.einsum("bsgrh,btgh->bgsrt", q.float(),
-                              k.float()).transpose(2, 3) / math.sqrt(hd)
+        logits = torch.einsum("bsgrh,btgh->bgsrt", qf,
+                              kf).transpose(2, 3) / math.sqrt(hd)
+        pv = torch.einsum
     else:
-        logits = torch.einsum("bsgrh,btgh->bgrst", q.float(),
-                              k.float()) / math.sqrt(hd)
+        # per shard, where torch's einsum would flatten a shard that does
+        # not lead its group (the batch and the head groups both sharded)
+        logits = shard_einsum("bsgrh,btgh->bgrst", qf, kf) / math.sqrt(hd)
+        pv = shard_einsum
     if cfg.attn_logit_softcap:
         c = cfg.attn_logit_softcap
         logits = torch.tanh(logits / c) * c
     logits = torch.where(mask, logits, -1e30)
     w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bgrst,btgh->bsgrh", w.to(v.dtype).float(), v.float())
+    out = pv("bgrst,btgh->bsgrh", w.to(v.dtype).float(), v.float())
     return merge_dims(out, 2, 4).to(v.dtype)
 
 

@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import normal_, rms_norm
-from .partitioning import merge_dims, replicate_like, settle, split_dim
+from .partitioning import (is_dtensor, merge_dims, replicate_like, run_local,
+                           per_shard, settle, shard_einsum, split_dim)
 
 __all__ = ["Mamba2", "mamba2_block", "mamba2_decode", "init_mamba2_state"]
 
@@ -63,7 +64,7 @@ def _split_proj(p: Mamba2, u, cfg):
     din, st = cfg.d_inner, cfg.ssm_state
     z, x, Bm, Cm, dt = torch.split(u @ p.in_proj,
                                    [din, din, st, st, cfg.ssm_heads], dim=-1)
-    dt = F.softplus(dt.float() + p.dt_bias)
+    dt = per_shard(F.softplus, dt.float() + p.dt_bias)
     return z, x, Bm, Cm, dt
 
 
@@ -71,19 +72,69 @@ def _causal_conv(x, w, state=None):
     """Depthwise causal conv; x [B, T, din], w [K, din].
     With ``state`` [B, K-1, din] performs the incremental step (the
     concatenation promotes to the wider of the two types, as the
-    reference's does)."""
+    reference's does).  Without it, ``DTensor`` operands run on each
+    rank's shards (:func:`_conv_layout`)."""
     K = w.shape[0]
     if state is not None:
         xa = torch.cat([state, x], dim=1)                  # [B, K-1+T, din]
         new_state = xa[:, -(K - 1):, :] if K > 1 else state
+        out = _taps(xa, w, x.shape[1])
     else:
-        xa = F.pad(x, (0, 0, K - 1, 0))
-        new_state = xa[:, -(K - 1):, :] if K > 1 else None
-    T = x.shape[1]
-    out = xa[:, 0:T, :] * w[0]
-    for i in range(1, K):
-        out = out + xa[:, i:i + T, :] * w[i]
+        lay = _conv_layout(x, w)
+        if lay is None:
+            out, new_state = _pad_taps(x, w)
+        else:
+            B, T, din = x.shape
+            out, new_state = run_local(
+                _pad_taps, (x, w), lay[:2], (lay[2], lay[2]),
+                ((B, T, din), (B, K - 1, din)))
+        if K == 1:
+            new_state = None
     return F.silu(out), new_state
+
+
+def _taps(xa, w, T):
+    """The conv's taps: ``sum_i xa[:, i:i+T] * w[i]``, in tap order."""
+    out = xa[:, 0:T, :] * w[0]
+    for i in range(1, w.shape[0]):
+        out = out + xa[:, i:i + T, :] * w[i]
+    return out
+
+
+def _pad_taps(x, w):
+    """(taps over ``x`` zero-padded by K-1 rows in front, the last K-1 rows
+    of the padded ``x``: the incremental step's state)."""
+    K = w.shape[0]
+    xa = F.pad(x, (0, 0, K - 1, 0))
+    return _taps(xa, w, x.shape[1]), xa[:, xa.shape[1] - (K - 1):, :]
+
+
+def _conv_layout(x, w):
+    """For ``DTensor`` operands of the conv, (x's layout, w's layout, the
+    output's): each mesh dim shards the channels of both, or keeps x's
+    batch shard or partial sums against a replica of w; None where the
+    sequence is sharded or the shards cross (then DTensor runs it, which
+    not every torch version can: its pad and the taps' broadcast of a
+    channel shard fail in some)."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+
+    xl, wl = [], []
+    for xp, wp in zip(x.placements, w.placements):
+        x_dim = xp.dim % 3 if xp.is_shard() else None
+        w_dim = wp.dim % 2 if wp.is_shard() else None
+        if wp.is_partial() or w_dim == 0 or x_dim == 1:
+            return None         # partial or split taps, a split sequence
+        if w_dim == 1 or x_dim == 2:            # the channels split here
+            if x_dim == 0:
+                return None     # ... and the batch on the same mesh dim
+            xl.append(Shard(2))
+            wl.append(Shard(1))
+        else:
+            xl.append(xp)
+            wl.append(Replicate())
+    return xl, wl, xl
 
 
 def _ssd_chunked(xh, Bm, Cm, dt, A_log, S0):
@@ -110,20 +161,20 @@ def _ssd_chunked(xh, Bm, Cm, dt, A_log, S0):
     for c in range(nC):
         sl = slice(c * L, (c + 1) * L)
         u_c, B_c, C_c, la_c = u[:, sl], Bm[:, sl], Cm[:, sl], loga[..., sl]
-        l = torch.cumsum(la_c, dim=-1)                      # [B, H, L]
+        l = per_shard(lambda t: torch.cumsum(t, dim=-1), la_c, -1)  # [B,H,L]
         # intra-chunk: M[t, j] = (C_t . B_j) exp(l_t - l_j), j <= t
-        cb = torch.einsum("bts,bjs->btj", C_c.float(), B_c.float())
+        cb = shard_einsum("bts,bjs->btj", C_c.float(), B_c.float())
         dec = torch.exp(l[..., :, None] - l[..., None, :])  # [B, H, L, L]
         M = torch.where(causal, cb[:, None] * dec, 0.0).to(m_dtype)
-        y = torch.einsum("bhtj,bjhp->bthp", M.float(),
+        y = shard_einsum("bhtj,bjhp->bthp", M.float(),
                          u_c.to(m_dtype).float())
         # inter-chunk: y_t += exp(l_t) * (S0 @ C_t)
-        y = y + torch.einsum("bht,bhps,bts->bthp", torch.exp(l), S,
+        y = y + shard_einsum("bht,bhps,bts->bthp", torch.exp(l), S,
                              C_c.float())
         # state update: S' = exp(l_L) S + sum_j exp(l_L - l_j) u_j (x) B_j
         w = torch.exp(l[..., -1:] - l)                      # [B, H, L]
         S = (S * torch.exp(l[..., -1])[..., None, None] +
-             torch.einsum("bhj,bjhp,bjs->bhps", w, u_c.float(), B_c.float()))
+             shard_einsum("bhj,bjhp,bjs->bhps", w, u_c.float(), B_c.float()))
         ys.append(y)
     y = torch.cat(ys, dim=1)
     return y.to(xh.dtype), S
@@ -167,10 +218,10 @@ def mamba2_decode(p: Mamba2, u: torch.Tensor, cfg, state, conv_state):
     xh = split_dim(x, -1, (H, hd))[:, 0]
     dt1 = dt[:, 0]                                          # [B, H]
     a = torch.exp(-torch.exp(p.A_log)[None] * dt1)          # [B, H]
-    upd = torch.einsum("bhp,bs->bhps", xh.float() * dt1[..., None],
+    upd = shard_einsum("bhp,bs->bhps", xh.float() * dt1[..., None],
                        Bm[:, 0].float())
     S = state * a[..., None, None] + upd
-    y = torch.einsum("bhps,bs->bhp", S, Cm[:, 0].float())
+    y = shard_einsum("bhps,bs->bhp", S, Cm[:, 0].float())
     y = y + xh.float() * p.D[None, :, None]
     y = merge_dims(y, 1, 2)[:, None].to(u.dtype)
     y = rms_norm(y, p.norm, cfg.norm_eps) * F.silu(z)

@@ -18,13 +18,14 @@ probabilities; random float32 logits make ties rare.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .layers import MLP, mlp_block, normal_
-from .partitioning import replicate_like
+from .partitioning import on_replicas
 
 __all__ = ["MoE", "moe_block"]
 
@@ -48,13 +49,42 @@ class MoE(nn.Module):
                               device, gen)
 
 
-def _dispatch_group(p: MoE, x: torch.Tensor, cfg):
-    """x [N, d] one dispatch group; returns (y [N, d], aux_loss scalar)."""
+def _fill(x, slot, k: int, E: int, cap: int):
+    """The dispatch buffer [E, cap, d]: token ``i // k`` of ``x`` [N, d] at
+    row ``slot[i]``.  One token per kept slot; every dropped token lands on
+    an overflow row past the last, which is cut off (shapes stay static: no
+    boolean indexing)."""
     N, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
-    cap = max(1, int(math.ceil(N * k * cfg.capacity_factor / E)))
+    tok = torch.arange(N, device=x.device).repeat_interleave(k)
+    buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[slot] = x[tok]
+    return buf[:-1].reshape(E, cap, d)
 
-    logits = x.float() @ p.router                               # [N, E]
+
+def _combine(out, slot, keep, w):
+    """y [N, d]: each token's ``top_k`` expert outputs of ``out`` [E, cap,
+    d] (zero where dropped), weighted by ``w`` [N, k] and added in slot
+    order in the storage type."""
+    E, cap, d = out.shape
+    N, k = w.shape
+    gathered = out.reshape(E * cap, d)
+    y_slots = torch.where(keep[:, None],
+                          gathered[torch.clamp(slot, 0, E * cap - 1)],
+                          torch.zeros((), dtype=out.dtype, device=out.device))
+    y_slots = (y_slots * w.reshape(N * k, 1).to(out.dtype)).reshape(N, k, d)
+    y = y_slots[:, 0]
+    for j in range(1, k):                         # slot order, storage type
+        y = y + y_slots[:, j]
+    return y
+
+
+def _route(logits, k: int, cap: int):
+    """Top-``k`` routing of ``logits`` [N, E] with capacity ``cap`` per
+    expert: the renormalised weights ``w`` [N, k], each slot's buffer row
+    ``slot`` [N*k] (the overflow row ``E * cap`` where dropped), ``keep``
+    [N*k], and the load-balancing auxiliary loss (Switch: E * sum_e f_e *
+    P_e)."""
+    N, E = logits.shape
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.topk(probs, k)                               # [N, k]
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
@@ -65,36 +95,34 @@ def _dispatch_group(p: MoE, x: torch.Tensor, cfg):
     pos = (pos * flat).sum(-1).to(torch.int64)                  # [N*k]
     e_flat = idx.reshape(N * k)
     keep = (pos < cap) & (w.reshape(N * k) > 0)
-
     slot = torch.where(keep, e_flat * cap + pos,
                        torch.full_like(pos, E * cap))           # overflow row
-    tok = replicate_like(torch.arange(N, device=x.device), x)
-    tok = tok.repeat_interleave(k)
-    buf = replicate_like(torch.zeros((E * cap + 1, d), dtype=x.dtype,
-                                     device=x.device), x)
-    # one token per kept slot; every dropped token lands on the overflow
-    # row, which is cut off (shapes stay static: no boolean indexing)
-    buf[slot] = x[tok]
-    buf = buf[:-1].reshape(E, cap, d)
+
+    f = onehot.sum(dim=(0, 1)) / max(1, N)                      # fraction
+    P = probs.mean(dim=0)
+    aux = E * torch.sum(f * P)
+    return w, slot, keep, aux
+
+
+def _dispatch_group(p: MoE, x: torch.Tensor, cfg):
+    """x [N, d] one dispatch group; returns (y [N, d], aux_loss scalar).
+    The router's and the experts' products run on the operands as they
+    are held; the routing, the buffer's indexed write and the outputs'
+    indexed read run on whole replicas (every rank the same), so a
+    ``DTensor`` needs no ``index_put`` strategy."""
+    N, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    cap = max(1, int(math.ceil(N * k * cfg.capacity_factor / E)))
+
+    logits = x.float() @ p.router                               # [N, E]
+    w, slot, keep, aux = on_replicas(partial(_route, k=k, cap=cap), logits)
+    buf = on_replicas(partial(_fill, k=k, E=E, cap=cap), x, slot)
 
     h = F.silu(torch.einsum("ecd,edf->ecf", buf, p.w_gate))
     h = h * torch.einsum("ecd,edf->ecf", buf, p.w_up)
     out = torch.einsum("ecf,efd->ecd", h, p.w_down)             # [E, cap, d]
 
-    gathered = out.reshape(E * cap, d)
-    y_slots = torch.where(keep[:, None],
-                          gathered[torch.clamp(slot, 0, E * cap - 1)],
-                          replicate_like(torch.zeros((), dtype=x.dtype,
-                                                     device=x.device), x))
-    y_slots = (y_slots * w.reshape(N * k, 1).to(x.dtype)).reshape(N, k, d)
-    y = y_slots[:, 0]
-    for j in range(1, k):                         # slot order, storage type
-        y = y + y_slots[:, j]
-
-    # load-balancing auxiliary loss (Switch): E * sum_e f_e * P_e
-    f = onehot.sum(dim=(0, 1)) / max(1, N)                      # fraction
-    P = probs.mean(dim=0)
-    aux = E * torch.sum(f * P)
+    y = on_replicas(_combine, out, slot, keep, w)
     return y, aux
 
 

@@ -25,9 +25,14 @@ GSPMD's layout for :func:`recorded_fallbacks`, and :func:`merge_dims`
 merges them back; :func:`gather_rows` gathers a sequence-sharded
 activation before a projection and :func:`as_layout` puts a projection's
 output back on the residual stream's shards, as Megatron's sequence
-parallelism does; :func:`align` gives a scan's operands one layout; and
+parallelism does; :func:`align` gives a scan's operands one layout;
 :func:`relayout` redistributes with a gradient every torch version can
-make.
+make; :func:`shard_einsum` and :func:`per_shard` run on each rank's
+shards (through :func:`run_local`), and :func:`on_replicas` runs indexed
+reads and writes on whole replicas.  These keep off what not every torch
+version's ``DTensor`` can do: flatten a shard that is not the leading dim
+of the flattened group, ``index_put``, and the gradients of cumsum (a
+flip) and softplus.
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ import torch
 __all__ = ["set_specs", "activation_specs", "unrolled_scans", "scan_unroll",
            "constrain", "replicate_like", "is_dtensor", "split_dim",
            "merge_dims", "gather_rows", "as_layout", "align", "settle",
-           "relayout", "recorded_fallbacks"]
+           "relayout", "recorded_fallbacks", "shard_einsum",
+           "einsum_needs_shards", "per_shard", "run_local", "on_replicas"]
 
 _KEYS = ("act", "logits", "attn_q", "attn_kv", "attn_out", "attn_chunk",
          "attn_chunks")
@@ -161,6 +167,25 @@ def split_dim(x, dim: int, sizes: tuple):
     return x.reshape(shape)
 
 
+def _contiguous(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return tuple(stride)
+
+
+def _stride_like(local, shape) -> tuple:
+    """The strides of a tensor of ``shape`` laid out in memory in the dim
+    order of ``local`` (an einsum's result is often a permuted view)."""
+    order = sorted(range(local.ndim), key=lambda i: -local.stride(i))
+    stride, n = [0] * len(shape), 1
+    for i in reversed(order):
+        stride[i] = n
+        n *= shape[i]
+    return tuple(stride)
+
+
 def merge_dims(x, start: int, end: int):
     """``x`` with dimensions ``start..end`` merged into one (a reshape; the
     inverse of :func:`split_dim`).  A ``DTensor`` sharded on none of them
@@ -178,11 +203,8 @@ def merge_dims(x, start: int, end: int):
 
     local = x.to_local()
     merged = local.reshape(*local.shape[:start], -1, *local.shape[end + 1:])
-    stride = [1] * len(shape)
-    for i in range(len(shape) - 2, -1, -1):
-        stride[i] = stride[i + 1] * shape[i + 1]
     return DTensor.from_local(merged, x.device_mesh, x.placements,
-                              shape=shape, stride=tuple(stride),
+                              shape=shape, stride=_contiguous(shape),
                               run_check=False)
 
 
@@ -261,6 +283,188 @@ def align(*ts):
     lay = tuple(Replicate() if p.is_partial() else p
                 for p in ts[0].placements)
     return tuple(t if t.placements == lay else relayout(t, lay) for t in ts)
+
+
+class _LayoutGrad(torch.autograd.Function):
+    """A local shard as it is; its gradient comes back in the shard's own
+    memory layout, which the ``DTensor`` it came from declares (a local
+    product's gradient is often a permuted view, on which DTensor's views
+    fail)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.layout = (x.shape, x.stride())
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.new_empty_strided(*ctx.layout).copy_(g)
+
+
+def _shard_plan(eq: str, ops):
+    """The per-shard plan of ``einsum(eq, *ops)`` over ``DTensor``
+    operands, or None where there is none.  Per mesh dim one label is
+    sharded: the label the largest operand shards there, else, where
+    operands hold partial sums, the first output label they all have.
+    Each operand with that label is laid out sharded on it (a replica
+    slices its own shard, partial sums are reduce-scattered, another shard
+    moves), every other one as a replica.  The output is sharded on the
+    label, or holds partial sums where the label is contracted (only
+    where no gradient is recorded).  Returns (input labels, output labels,
+    label -> global size, per-operand placements, output placements)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    if "..." in eq or "->" not in eq:
+        return None
+    ins, out = eq.replace(" ", "").split("->")
+    ins = ins.split(",")
+    if len(ins) != len(ops) or not all(is_dtensor(t) for t in ops):
+        return None
+    mesh = ops[0].device_mesh
+    if any(t.device_mesh != mesh for t in ops):
+        return None
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in ops)
+    sizes = {}
+    for lab, t in zip(ins, ops):
+        sizes.update(zip(lab, t.shape))
+    want = [list(t.placements) for t in ops]
+    out_pl = []
+    for i in range(mesh.ndim):
+        shards = [(t.numel(), lab[t.placements[i].dim % len(lab)])
+                  for lab, t in zip(ins, ops) if t.placements[i].is_shard()]
+        part = [lab for lab, t in zip(ins, ops)
+                if t.placements[i].is_partial()]
+        L = max(shards)[1] if shards else None
+        if L is None and part:
+            L = next((c for c in out if all(c in lab for lab in part)), None)
+            if L is None:
+                return None
+        if L is None:
+            out_pl.append(Replicate())
+        elif L in out:
+            out_pl.append(Shard(out.index(L)))
+        elif grad:
+            return None
+        else:
+            out_pl.append(Partial())
+        for j, lab in enumerate(ins):
+            want[j][i] = (Replicate() if L is None or L not in lab
+                          else Shard(lab.index(L)))
+    return ins, out, sizes, want, out_pl
+
+
+def einsum_needs_shards(eq: str, *ops) -> bool:
+    """Whether torch's own ``einsum(eq, *ops)`` would flatten a shard that
+    is not the leading dim of its group, where :func:`shard_einsum` has a
+    plan.  Torch flattens each group of labels (those the output and
+    several operands have, each operand's own output labels, the
+    contracted ones) into one dim, which not every torch version can do
+    with a shard on any but the group's first label."""
+    plan = _shard_plan(eq, ops)
+    if plan is None:
+        return False
+    ins, out, _, _, out_pl = plan
+    sharded = {lab[p.dim % len(lab)] for lab, t in zip(ins, ops)
+               for p in t.placements if p.is_shard()}
+    sharded |= {out[p.dim] for p in out_pl if p.is_shard()}
+    groups = [[c for c in out if sum(c in lab for lab in ins) > 1]]
+    groups += [[c for c in out if c in lab and
+                sum(c in m for m in ins) == 1] for lab in ins]
+    groups.append([c for c in dict.fromkeys("".join(ins))
+                   if c not in out and sum(c in lab for lab in ins) > 1])
+    return any(set(g[1:]) & sharded for g in groups)
+
+
+def shard_einsum(eq: str, *ops):
+    """``torch.einsum(eq, *ops)``; over ``DTensor`` operands for which
+    :func:`_shard_plan` has a layout (one sharded label a mesh dim), the
+    einsum of each rank's local shards: the operands are laid out as the
+    plan says first (nothing moves where they already are), and the result
+    is sharded on the plan's labels (partial sums where one is
+    contracted).  Torch's own einsum flattens groups of labels into one
+    dim, which not every torch version can do with a shard that does not
+    lead its group (:func:`einsum_needs_shards`).  An operand without a
+    mesh dim's label is a replica there, and its gradient comes back as
+    partial sums.  Plain tensors, and any other layout, take torch's
+    einsum."""
+    plan = _shard_plan(eq, ops)
+    if plan is None:
+        return torch.einsum(eq, *ops)
+    ins, out, sizes, want, out_pl = plan
+    return run_local(lambda *locs: torch.einsum(eq, *locs), ops, want,
+                     out_pl, tuple(sizes[c] for c in out))
+
+
+def run_local(fn, ts, want, out_pl, shape):
+    """``fn`` over each rank's local shards of the ``DTensor``s ``ts``,
+    each first laid out as its entry of ``want`` says (nothing moves where
+    it already is), the result of global ``shape`` placed as ``out_pl``
+    (a tuple of results: ``shape`` and ``out_pl`` per result).  Gradients:
+    an operand that is a replica where the result is not comes back as
+    partial sums there, one that held partial sums as a replica."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from ..distributed.comm import redistribute
+
+    many = isinstance(shape[0], (tuple, torch.Size))
+    shapes, pls = (shape, out_pl) if many else ((shape,), (out_pl,))
+    locs = []
+    for t, pl in zip(ts, want):
+        if tuple(pl) != t.placements:
+            t = redistribute(t, pl)
+        grad = [Replicate() if p.is_partial() else
+                Partial() if (p.is_replicate() and
+                              any(not o[i].is_replicate() for o in pls))
+                else p for i, p in enumerate(pl)]
+        locs.append(_LayoutGrad.apply(t.to_local(grad_placements=grad)))
+    res = fn(*locs)
+    res = res if many else (res,)
+    mesh = ts[0].device_mesh
+    out = tuple(DTensor.from_local(r, mesh, pl, shape=torch.Size(sh),
+                                   stride=_stride_like(r, sh),
+                                   run_check=False)
+                for r, sh, pl in zip(res, shapes, pls))
+    return out if many else out[0]
+
+
+def per_shard(fn, x, whole: int | None = None):
+    """``fn(x)`` for an ``fn`` that works row by row along every dim but
+    ``whole`` (elementwise where ``whole`` is None); a ``DTensor`` with no
+    shard on ``whole`` and no partial sums runs ``fn`` on each rank's shard
+    and keeps its layout.  For what not every torch version's ``DTensor``
+    has a strategy for: cumsum's gradient (a flip), softplus's gradient."""
+    if not is_dtensor(x) or any(
+            p.is_partial() or (whole is not None and p.is_shard() and
+                               p.dim % x.ndim == whole % x.ndim)
+            for p in x.placements):
+        return fn(x)
+    return run_local(fn, (x,), (x.placements,), x.placements, tuple(x.shape))
+
+
+def on_replicas(fn, *ts):
+    """``fn(*ts)``; where ``ts`` holds ``DTensor``s, each is made a replica
+    on every rank (gathered once where it was not one), ``fn`` runs on the
+    local copies and its result (a tensor or a tuple of them), the same on
+    every rank, is a replica.  For indexed reads and writes (``buf[slot] =
+    x[tok]``): not every torch version has a ``DTensor`` strategy for
+    ``index_put``."""
+    if not any(is_dtensor(t) for t in ts):
+        return fn(*ts)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from ..distributed.comm import redistribute
+
+    mesh = next(t for t in ts if is_dtensor(t)).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    locs = [_LayoutGrad.apply((t if tuple(t.placements) == tuple(rep) else
+                               redistribute(t, rep)).to_local())
+            if is_dtensor(t) else t for t in ts]
+    res = fn(*locs)
+
+    def replica(r):
+        return DTensor.from_local(r, mesh, rep, run_check=False)
+
+    return tuple(map(replica, res)) if isinstance(res, tuple) else replica(res)
 
 
 def settle(*ts):

@@ -23,7 +23,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import normal_, rms_norm
-from .partitioning import align, merge_dims, replicate_like, split_dim
+from .partitioning import (align, as_layout, is_dtensor, merge_dims,
+                           per_shard, relayout, replicate_like,
+                           shard_einsum, split_dim)
 
 __all__ = ["RWKV6", "rwkv6_block", "rwkv6_decode", "init_rwkv6_state"]
 
@@ -93,19 +95,19 @@ def _wkv_chunked(r, k, v, logw, u, H, hd):
     for c in range(nC):
         sl = slice(c * L, (c + 1) * L)
         rc, kc, vc, lw = r[:, sl], k[:, sl], v[:, sl], logw[:, sl]
-        l = torch.cumsum(lw, dim=1)                        # inclusive
+        l = per_shard(lambda t: torch.cumsum(t, dim=1), lw, 1)  # inclusive
         lprev = l - lw                                     # exclusive
         rt = rc * torch.exp(lprev)                         # r~_t = r_t P_{t-1}
         kt = kc * torch.exp(-l)                            # k~_j = k_j / P_j
-        A = torch.einsum("bthc,bjhc->bhtj", rt, kt)        # [B, H, L, L]
+        A = shard_einsum("bthc,bjhc->bhtj", rt, kt)        # [B, H, L, L]
         A = torch.where(strict, A, 0.0)
-        diag = torch.einsum("bthc,hc,bthc->bth", rc, u, kc)  # bonus u term
-        y = torch.einsum("bhtj,bjhd->bthd", A, vc)
+        diag = shard_einsum("bthc,hc,bthc->bth", rc, u, kc)  # bonus u term
+        y = shard_einsum("bhtj,bjhd->bthd", A, vc)
         y = y + diag[..., None] * vc
-        y = y + torch.einsum("bthc,bhcd->bthd", rt, S)     # inter-chunk
+        y = y + shard_einsum("bthc,bhcd->bthd", rt, S)     # inter-chunk
         # S' = diag(P_L) S + sum_j (P_L / P_j) k_j v_j^T
         S = (S * torch.exp(l[:, -1])[..., None] +
-             torch.einsum("bjhc,bjhd->bhcd",
+             shard_einsum("bjhc,bjhd->bhcd",
                           kc * torch.exp(l[:, -1:] - l), vc))
         ys.append(y)
     return torch.cat(ys, dim=1), S
@@ -125,7 +127,13 @@ def _projections(p: RWKV6, x, last, cfg):
     k = split_dim(xk @ p.wk, -1, (H, hd)).float()
     v = split_dim(xv @ p.wv, -1, (H, hd)).float()
     g = F.silu(xg @ p.wg)
-    logw = -torch.exp(p.w0 + (torch.tanh(xw @ p.w1) @ p.w2).float())
+    # the decay's gradient comes back in its product's layout: sliced
+    # chunk by chunk, it would come back sharded on the sequence, which
+    # the product's backward then has to flatten
+    lora = torch.tanh(xw @ p.w1) @ p.w2
+    if is_dtensor(lora):
+        lora = relayout(lora, lora.placements)
+    logw = -torch.exp(p.w0 + lora.float())
     logw = split_dim(logw, -1, (H, hd))
     return r, k, v, g, logw
 
@@ -148,7 +156,7 @@ def rwkv6_block(p: RWKV6, x: torch.Tensor, cfg, state=None):
     y, S = _wkv_chunked(r, k, v, logw, p.u, H, hd)
     y = merge_dims(y, 2, 3).to(x.dtype)
     y = rms_norm(y, p.ln_x, cfg.norm_eps) * g
-    out = y @ p.wo
+    out = as_layout(y @ p.wo, x)        # a DTensor's partial sums reduced
 
     h = x + out
     clast = zeros if state is None else state[2]
@@ -177,12 +185,12 @@ def rwkv6_decode(p: RWKV6, x: torch.Tensor, cfg, state):
     r, k, v, g, logw = _projections(p, x, last_x, cfg)
     r1, k1, v1 = r[:, 0], k[:, 0], v[:, 0]                 # [B, H, hd]
     w1 = torch.exp(logw[:, 0])                             # decay in (0, 1)
-    kv = torch.einsum("bhc,bhd->bhcd", k1, v1)
-    y = torch.einsum("bhc,bhcd->bhd", r1, S + p.u[..., None] * kv)
+    kv = shard_einsum("bhc,bhd->bhcd", k1, v1)
+    y = shard_einsum("bhc,bhcd->bhd", r1, S + p.u[..., None] * kv)
     S = S * w1[..., None] + kv
     y = merge_dims(y, 1, 2)[:, None].to(x.dtype)
     y = rms_norm(y, p.ln_x, cfg.norm_eps) * g
-    out = y @ p.wo
+    out = as_layout(y @ p.wo, x)        # a DTensor's partial sums reduced
 
     h = x + out
     cm = _channel_mix(p, h, last_h)
