@@ -146,7 +146,31 @@ Phases, in order; a failure in any of them exits non-zero:
               steps (step ms, tokens/s, peak memory, every loss, the
               global gradient norm, all finite; the bf16 and f32 FLOPs of
               a step at the data sheet's peaks as its bound).
-14. dist    — the distributed substrate (``repro_torch.distributed``:
+14. train_width — the training path at the published widths: the memory
+              plan of the nine architectures but gemma2-2b, on the meta
+              device (parameters, one gradient a parameter, AdamW moments
+              in f32 or bf16, and 14 GB of activations a 4,096-token row
+              against 80 GB; a cut batch listed in ``reduced``;
+              starcoder2-15b and llama4-maverick left out with their
+              bytes); then whisper-tiny, h2o-danube-1.8b, gemma3-4b,
+              zamba2-7b, olmoe-1b-7b, rwkv6-7b and qwen2-vl-7b in that
+              order, each first in f32 at full width and the ``width``
+              phase's cut depth, batch 1 x 256, one model on the CPU and
+              its copy on the card (loss rel 1e-5, gradients 1e-4 of each
+              leaf's max abs, zamba2-7b 1.2e-2; the card's gradients of the
+              row twice against once printed), then at full width and
+              depth in bf16 with the planned moments at 4,096 tokens a row
+              (whisper's frames, qwen2-vl's patch embeddings and M-RoPE
+              positions as the train_4k cell lays them out): a warm-up
+              step under ``hlo_analysis.MatmulFlops``, whose
+              matrix-product FLOPs by type at 989/67 TFLOP/s are the step's
+              bound, two timed steps (step ms, tokens/s, states and peak
+              memory, every loss, the global gradient norm, all finite),
+              one step under the profiler (device ms, busy share, matrix
+              products' share); each model freed before the next; then
+              ``run_training``'s crash and resume bitwise at olmoe-1b-7b's
+              and zamba2-7b's smoke sizes.
+15. dist    — the distributed substrate (``repro_torch.distributed``:
               compression, pipeline, mesh rules, checkpoint resharding;
               torch ops and ``torch.distributed``): four gloo ranks spawned
               on a ``file://`` store, all on cuda:0 (NCCL refuses two ranks
@@ -171,7 +195,7 @@ Phases, in order; a failure in any of them exits non-zero:
               CPU, its parameters within 5e-3 of ``train_step_fn``'s from
               the same start; three timed steps (step ms p50, tokens/s,
               peak memory, losses and error norms, all finite).
-15. lower   — the lowering proofs (``repro_torch.launch.dryrun``,
+16. lower   — the lowering proofs (``repro_torch.launch.dryrun``,
               ``launch.hlo_analysis``; traces of ``meta`` tensors on
               placeholder worlds, run in this process, no GPU needed): the
               HAMLET pane step on the (16, 16) and (2, 16, 16) meshes,
@@ -2668,13 +2692,14 @@ def _loss_grads(torch, model, batch):
     return float(loss.detach()), dict(zip(names, grads))
 
 
-def _leaf_errs(np, got: dict, want: dict) -> dict:
-    """max |got - want| over the leaf's max |want|, leaf by leaf."""
+def _leaf_errs(torch, got: dict, want: dict) -> dict:
+    """max |got - want| over the leaf's max |want|, leaf by leaf, in
+    float32 on ``got``'s device (each leaf of ``want`` moved there)."""
     out = {}
     for n, w in want.items():
-        w = w.detach().float().cpu().numpy()
-        g = got[n].detach().float().cpu().numpy()
-        out[n] = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+        g = got[n].detach().float()
+        w = w.detach().to(g.device).float()
+        out[n] = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
     return out
 
 
@@ -2703,7 +2728,7 @@ def train_smoke(torch, np, dev) -> dict:
         lh, gh = _loss_grads(torch, host, bh)
         lc, gc = _loss_grads(torch, card, bc)
         e_loss = abs(lc - lh) / abs(lh)
-        errs = _leaf_errs(np, gc, gh)
+        errs = _leaf_errs(torch, gc, gh)
         g_worst = max(errs, key=errs.get)
 
         opt = AdamW(lr=TRAIN_LR)
@@ -2711,7 +2736,7 @@ def train_smoke(torch, np, dev) -> dict:
         sh, sc = opt.init(ph), opt.init(pc)
         opt.update(ph, gh, sh)
         opt.update(pc, {n: g.to(dev) for n, g in gh.items()}, sc)
-        uerrs = _leaf_errs(np, pc, ph)
+        uerrs = _leaf_errs(torch, pc, ph)
         u_worst = max(uerrs, key=uerrs.get)
 
         step = train_step_fn(opt)
@@ -2721,7 +2746,7 @@ def train_smoke(torch, np, dev) -> dict:
         e_loss2 = abs(l2c - l2h) / abs(l2h)
         g_bound = (RTOL_TRAIN_GRAD_ZAMBA2 if arch == "zamba2-7b"
                    else RTOL_TRAIN_GRAD)
-        serrs = _leaf_errs(np, pc, ph)
+        serrs = _leaf_errs(torch, pc, ph)
         s_worst = max(serrs, key=serrs.get)
         log(f"[train] smoke {arch}: loss {lc:.6f} (card) {lh:.6f} (CPU) rel "
             f"{e_loss:.3e}; gradients worst {errs[g_worst]:.3e} "
@@ -2741,8 +2766,8 @@ def train_smoke(torch, np, dev) -> dict:
     return out
 
 
-def train_resume(torch, np, dev) -> dict:
-    """``run_training`` at gemma2-2b's ``reduce_for_smoke`` size (bf16) on
+def train_resume(torch, np, dev, arch: str = LM_ARCH) -> dict:
+    """``run_training`` at ``arch``'s ``reduce_for_smoke`` size (bf16) on
     the card: 12 steps with a checkpoint every 4; then a run that crashes
     at step 9 and its restart, which resumes from step 8.  The final
     parameters and the overlapping losses must equal the uninterrupted
@@ -2754,7 +2779,7 @@ def train_resume(torch, np, dev) -> dict:
     from repro_torch.train.trainer import (InjectedFailure, TrainLoopConfig,
                                            run_training)
 
-    cfg = reduce_for_smoke(get_config(LM_ARCH))
+    cfg = reduce_for_smoke(get_config(arch))
     root = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(root, ignore_errors=True)
     loop = TrainLoopConfig(steps=12, batch=4, seq=32, lr=TRAIN_LR,
@@ -2777,7 +2802,7 @@ def train_resume(torch, np, dev) -> dict:
         f"{len(same)}; losses 8-11 bitwise {ref_losses[8:] == res_losses} "
         f"({res_losses}); three runs {wall:.1f} s")
     if resumed != 8 or not all(same) or ref_losses[8:] != res_losses:
-        fail(f"train crash/resume: resumed {resumed}, parameters "
+        fail(f"train crash/resume {arch}: resumed {resumed}, parameters "
              f"{sum(same)}/{len(same)}, losses {ref_losses[8:]} vs "
              f"{res_losses}")
     shutil.rmtree(root, ignore_errors=True)
@@ -2807,39 +2832,60 @@ def train_flops(cfg, B: int, S: int) -> dict:
     return {"bf16": lin + head, "f32": attn}
 
 
-def train_profile(torch, fn) -> dict:
-    """One call of ``fn`` (a train step) under ``torch.profiler``: wall,
-    device time and busy share, kernels launched, the share of device time
-    in matrix products (kernel names with gemm, xmma or nvjet) and the
-    costliest kernels."""
+def train_profile(torch, fn, tag: str = "[train]") -> dict:
+    """One call of ``fn`` (a train step) under ``torch.profiler``, the
+    card's activity only: wall, device time and busy share, kernels
+    launched, the share of device time in matrix products (kernel names
+    with gemm, xmma or nvjet) and the costliest kernels, logged under
+    ``tag``.  The device events are summed from the profiler's raw
+    records (``kineto_results``), not through ``key_averages()``, which
+    first builds a Python event tree over every record of the step."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kern = [ev for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA]
-    kern.sort(key=lambda ev: -ev.self_device_time_total)
-    dev_ms = sum(ev.self_device_time_total for ev in kern) / 1e3
-    mm_ms = sum(ev.self_device_time_total for ev in kern
-                if any(k in ev.key.lower() for k in ("gemm", "xmma",
-                                                     "nvjet"))) / 1e3
-    top = [{"name": ev.key[:70], "calls": ev.count,
-            "ms": ev.self_device_time_total / 1e3} for ev in kern[:8]]
-    n_kern = sum(ev.count for ev in kern)
-    log(f"[train] profiled step: wall {wall * 1e3:.1f} ms under the "
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        n, ms = by_name.get(ev.name(), (0, 0.0))
+        by_name[ev.name()] = (n + 1, ms + ev.duration_ns() / 1e6)
+    dev_ms = sum(ms for _, ms in by_name.values())
+    mm_ms = sum(ms for k, (_, ms) in by_name.items()
+                if any(w in k.lower() for w in ("gemm", "xmma", "nvjet")))
+    top = [{"name": k[:70], "calls": n, "ms": ms} for k, (n, ms) in
+           sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]]
+    n_kern = sum(n for n, _ in by_name.values())
+    log(f"{tag} profiled step: wall {wall * 1e3:.1f} ms under the "
         f"profiler, device {dev_ms:.1f} ms (busy {dev_ms / (wall * 1e3):.1%}"
         f"), {n_kern} kernels; matrix products {mm_ms:.1f} ms "
         f"({mm_ms / max(dev_ms, 1e-9):.1%} of device time)")
     for t in top:
-        log(f"[train]   {t['ms']:.1f} ms x{t['calls']}  {t['name']}")
+        log(f"{tag}   {t['ms']:.1f} ms x{t['calls']}  {t['name']}")
     return {"wall_ms": wall * 1e3, "device_ms": dev_ms,
             "busy": dev_ms / (wall * 1e3), "kernels": n_kern,
             "matmul_ms": mm_ms, "top": top}
+
+
+class GradNorm:
+    """AdamW's ``grad_transform`` hook: keeps each step's global gradient
+    norm (a device scalar, read after the steps) and passes the gradients
+    on unchanged."""
+
+    def __init__(self):
+        self.norms = []
+
+    def apply(self, grads, state):
+        import torch
+
+        sq = torch.stack([g.float().square().sum()
+                          for g in grads.values()]).sum()
+        self.norms.append(sq.sqrt())
+        return grads, state
 
 
 def train_full(torch, np, dev) -> dict:
@@ -2854,20 +2900,12 @@ def train_full(torch, np, dev) -> dict:
     from repro_torch.train import AdamW
     from repro_torch.train.data import SyntheticLM
 
-    norms = []
-
-    class GradNorm:
-        def apply(self, grads, state):
-            sq = torch.stack([g.float().square().sum()
-                              for g in grads.values()]).sum()
-            norms.append(sq.sqrt())
-            return grads, state
-
+    hook = GradNorm()
     cfg = get_config(LM_ARCH)
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     model = LM(cfg, device=dev, seed=0)
-    opt = AdamW(lr=TRAIN_LR, grad_transform=GradNorm())
+    opt = AdamW(lr=TRAIN_LR, grad_transform=hook)
     state = opt.init(dict(model.named_parameters()))
     step = train_step_fn(opt)
     src = SyntheticLM(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)
@@ -2886,7 +2924,7 @@ def train_full(torch, np, dev) -> dict:
     batch = _on(torch, np, src.batch_for_step(TRAIN_STEPS + 1), dev)
     prof = train_profile(torch, lambda: losses.append(
         float(step(model, state, batch))))
-    norms = [float(n) for n in norms]
+    norms = [float(n) for n in hook.norms]
     finite = (all(math.isfinite(v) for v in losses + norms) and
               all(bool(torch.isfinite(p).all()) for p in model.parameters()))
     ms = sorted(t * 1e3 for t in times[1:])
@@ -2940,6 +2978,306 @@ def phase_train(torch, np) -> dict:
     out["launches"] = _launches()
     log(f"[train] kernel launches over the phase (none on this path): "
         f"{out['launches']}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# training at the published widths: the architectures that fit one card
+# --------------------------------------------------------------------------
+
+TRAIN_WIDTH_SEQ = 4_096   # the train_4k cell's length: 32 Mamba2 chunks of
+                          # 128, 64 RWKV-6 chunks of 64, 8 CE chunks of 512
+TRAIN_WIDTH_BATCH = 2
+TRAIN_WIDTH_BUDGET = 80e9       # the card's 80 GB (data sheet)
+TRAIN_WIDTH_ROW = 14e9  # activations the plan assumes a 4,096-token row
+# takes above the states with per-group remat: about twice gemma2-2b's 7.5
+# GB a 5,120-token row (46.4 GB peak over 31.4 GB of states at 2 x 5,120
+# in the train phase, on an H100 80GB HBM3 at 700 W), for the 7 B models'
+# wider layers and longer chunk loops
+TRAIN_WIDTH_CHECK = (1, 256)    # the f32 check's batch x seq, at the depth
+                                # of launch.serve.cut_depth(cfg, WIDTH_DEPTH)
+TRAIN_WIDTH_RESUME = ("olmoe-1b-7b", "zamba2-7b")  # crash/resume beside
+                                                   # the train phase's
+TRAIN_WIDTH_STEPS = 2   # timed steps, after the counted warm-up: zamba2's
+                        # and rwkv6's chunk loops take 13-18 s a step on
+                        # an H100 80GB HBM3 at 700 W
+RTOL_TRAIN_WIDTH_GRAD = {"zamba2-7b": 1.2e-2}   # the f32 check's gradient
+# bound where RTOL_TRAIN_GRAD does not hold: zamba2's random Mamba2 stack
+# amplifies float32 rounding at its width.  Card against CPU 5.998e-03 on
+# an H100 80GB HBM3 at 700 W, where the card's own gradients of the row
+# twice against once move 2.903e-03 (other GEMM shapes); about twice the
+# measured error, as RTOL_WIDTH holds its decode
+PEAK_RATES = {"bfloat16": PEAK_BF16_FLOPS, "float32": PEAK_F32_FLOPS}
+
+
+def train_width_plan(torch) -> dict:
+    """Memory plan of every architecture but ``LM_ARCH`` (the train phase
+    trains it) at its published configuration, reckoned on the ``meta``
+    device before anything is built: parameters, plus one gradient a
+    parameter in the parameter's type, plus AdamW's two moments (float32:
+    8 B a parameter; bfloat16: 4 B).  The first of f32 moments at batch 2,
+    f32 at batch 1, bf16 at batch 2, bf16 at batch 1 whose states plus
+    ``TRAIN_WIDTH_ROW`` a row fit ``TRAIN_WIDTH_BUDGET`` is the plan; a cut
+    batch is listed in ``reduced``; an architecture none fits is left out
+    with its bytes.  Entries in ``WIDTH_ARCHS`` order, smallest first."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    plan = {}
+    for arch in WIDTH_ARCHS + (WIDTH_LEFT_OUT,):
+        model = LM(get_config(arch), device="meta")
+        ps = list(model.parameters())
+        n = sum(p.numel() for p in ps)
+        w = sum(p.numel() * p.element_size() for p in ps)
+        del model
+        states = {m: 2 * w + n * 2 * size for m, size in
+                  (("float32", 4), ("bfloat16", 2))}
+        entry = {"params": n, "weight_bytes": w, "state_bytes": states}
+        for moments in ("float32", "bfloat16"):
+            for batch in range(TRAIN_WIDTH_BATCH, 0, -1):
+                need = states[moments] + batch * TRAIN_WIDTH_ROW
+                if need <= TRAIN_WIDTH_BUDGET:
+                    break
+            else:
+                continue
+            reduced = ([f"batch {TRAIN_WIDTH_BATCH} -> {batch}"]
+                       if batch < TRAIN_WIDTH_BATCH else [])
+            entry.update(moments=moments, batch=batch, seq=TRAIN_WIDTH_SEQ,
+                         reduced=reduced, planned_bytes=need)
+            break
+        plan[arch] = entry
+    return plan
+
+
+def _width_batch(np, cfg, B: int, S: int, step: int = 0) -> dict:
+    """One step's inputs at batch ``B`` and sequence ``S``, laid out as
+    the train_4k cell lays them out (``configs.base.step_specs``):
+    ``SyntheticLM``'s tokens and labels (seed 0, step ``step``); whisper's
+    frames [B, S, d] (standard normal, as ``launch.serve.prompts`` makes
+    them); qwen2-vl's ``min(1024, S // 4)`` patch embeddings ahead of its
+    ``S - n_vis`` tokens and its M-RoPE positions [3, B, S], every stream
+    0..S-1."""
+    from repro_torch.train.data import SyntheticLM
+
+    b = SyntheticLM(cfg.vocab, B, S, seed=0).batch_for_step(step)
+    rng = np.random.default_rng(step)
+    if cfg.enc_dec:
+        b["frames"] = rng.standard_normal((B, S, cfg.d_model)
+                                          ).astype(np.float32)
+    if cfg.frontend == "patches":
+        n_vis = min(1024, S // 4)
+        b["patch_embeds"] = rng.standard_normal((B, n_vis, cfg.d_model)
+                                                ).astype(np.float32)
+        b["tokens"] = b["tokens"][:, :S - n_vis]
+    if cfg.mrope_sections:
+        b["positions"] = np.broadcast_to(np.arange(S), (3, B, S)
+                                         ).astype(np.int32)
+    return b
+
+
+def _rows_twice(np, batch: dict) -> dict:
+    """``batch`` with every row repeated (positions' batch axis is 1)."""
+    return {k: np.concatenate([v, v], axis=1 if k == "positions" else 0)
+            for k, v in batch.items()}
+
+
+def train_width_f32(torch, np, arch: str, dev) -> dict:
+    """``arch`` at full width and ``launch.serve.cut_depth(cfg,
+    WIDTH_DEPTH)`` in float32, one ``LM`` built on the CPU and a deep copy
+    on the card, batch x seq ``TRAIN_WIDTH_CHECK``: the loss (rel
+    ``RTOL_TRAIN_LOSS``) and every gradient (``RTOL_TRAIN_GRAD`` of each
+    leaf's max abs; zamba2-7b ``RTOL_TRAIN_WIDTH_GRAD``) on the card
+    against the CPU.  Printed beside them: the card's gradients of the
+    same row twice against those of the row once (equal in exact
+    arithmetic; other GEMM shapes), how far float32 rounding in another
+    order moves them; and the seconds each part took."""
+    import copy
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import LM
+
+    t = [time.perf_counter()]
+    cfg = replace(launch_serve.cut_depth(get_config(arch), WIDTH_DEPTH),
+                  dtype="float32")
+    cpu = torch.device("cpu")
+    host = LM(cfg, device=cpu, seed=0)
+    card = copy.deepcopy(host).to(dev)
+    batch = _width_batch(np, cfg, *TRAIN_WIDTH_CHECK)
+    t.append(time.perf_counter())
+    lh, gh = _loss_grads(torch, host, _on(torch, np, batch, cpu))
+    del host
+    t.append(time.perf_counter())
+    lc, gc = _loss_grads(torch, card, _on(torch, np, batch, dev))
+    l2, g2 = _loss_grads(torch, card, _on(torch, np, _rows_twice(np, batch),
+                                          dev))
+    del card
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    e_loss = abs(lc - lh) / abs(lh)
+    errs = _leaf_errs(torch, gc, gh)
+    worst = max(errs, key=errs.get)
+    order = _leaf_errs(torch, g2, gc)
+    o_worst = max(order, key=order.get)
+    t.append(time.perf_counter())
+    bound = RTOL_TRAIN_WIDTH_GRAD.get(arch, RTOL_TRAIN_GRAD)
+    secs = [round(b - a, 1) for a, b in zip(t, t[1:])]
+    log(f"[train_width] {arch} f32 at {cfg.n_layers} of "
+        f"{get_config(arch).n_layers} layers, full width, batch x seq "
+        f"{TRAIN_WIDTH_CHECK}: loss {lc:.6f} (card) {lh:.6f} (CPU) rel "
+        f"{e_loss:.3e} (bound {RTOL_TRAIN_LOSS:g}); gradients worst "
+        f"{errs[worst]:.3e} ({worst}; bound {bound:g}); the row twice on "
+        f"the card against once: loss rel {abs(l2 - lc) / abs(lc):.3e}, "
+        f"gradients worst {order[o_worst]:.3e} ({o_worst}); build, CPU, "
+        f"card, compare {secs} s")
+    out = {"layers": cfg.n_layers, "loss_err": e_loss,
+           "grad_err": errs[worst], "grad_worst": worst, "bound": bound,
+           "order_loss_err": abs(l2 - lc) / abs(lc),
+           "order_grad_err": order[o_worst], "order_worst": o_worst,
+           "seconds": secs}
+    del gc, gh, g2
+    torch.cuda.empty_cache()
+    if not (e_loss <= RTOL_TRAIN_LOSS and errs[worst] <= bound):
+        fail(f"train_width {arch} f32: loss {e_loss:.3e}, gradients "
+             f"{errs[worst]:.3e} ({worst})")
+    return out
+
+
+def train_width_arch(torch, np, arch: str, entry: dict, dev) -> dict:
+    """``arch`` at its published configuration, bf16, seed 0, AdamW (lr
+    ``TRAIN_LR``) with the plan's moments, at the plan's batch x seq: a
+    warm-up step under ``hlo_analysis.MatmulFlops`` (its matrix-product
+    FLOPs by type give the bound at the data sheet's peaks),
+    ``TRAIN_WIDTH_STEPS`` steps each timed on the host clock with the
+    device synced, then one step under the profiler.  The losses, the
+    global gradient norms and every parameter after the last step must be
+    finite; an out-of-memory error is not caught."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.hlo_analysis import MatmulFlops
+    from repro_torch.models import LM, train_step_fn
+    from repro_torch.train import AdamW
+
+    cfg = get_config(arch)
+    B, S = entry["batch"], entry["seq"]
+    hook = GradNorm()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = LM(cfg, device=dev, seed=0)
+    opt = AdamW(lr=TRAIN_LR, grad_transform=hook,
+                state_dtype=(entry["moments"] if entry["moments"] ==
+                             "bfloat16" else None))
+    state = opt.init(dict(model.named_parameters()))
+    step = train_step_fn(opt)
+    states = torch.cuda.memory_allocated() - base
+    losses, times = [], []
+    for i in range(TRAIN_WIDTH_STEPS + 1):
+        batch = _on(torch, np, _width_batch(np, cfg, B, S, i), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            with MatmulFlops() as counter:
+                loss = step(model, state, batch)
+        else:
+            loss = step(model, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated() - base
+    batch = _on(torch, np,
+                _width_batch(np, cfg, B, S, TRAIN_WIDTH_STEPS + 1), dev)
+    prof = train_profile(torch, lambda: losses.append(
+        float(step(model, state, batch))), tag=f"[train_width] {arch}")
+    norms = [float(n) for n in hook.norms]
+    finite = (all(math.isfinite(v) for v in losses + norms) and
+              all(bool(torch.isfinite(p).all()) for p in model.parameters()))
+    ms = sorted(t * 1e3 for t in times[1:])
+    med = statistics.median(ms)
+    flops = dict(counter.flops_by_dtype)
+    if not set(flops) <= set(PEAK_RATES):
+        fail(f"train_width {arch}: products of another type: {flops}")
+    bound = sum(f / PEAK_RATES[dt] for dt, f in flops.items()) * 1e3
+    tok_s = B * S / (med / 1e3)
+    log(f"[train_width] {arch} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}) bf16, {entry['moments']} AdamW "
+        f"moments: {entry['params']:,} parameters; batch {B} x {S} "
+        f"(reduced {entry['reduced']}); warm-up step (under the FLOP "
+        f"counter) {times[0] * 1e3:.1f} ms; step p50 {med:.1f} ms (min "
+        f"{ms[0]:.1f}, max {ms[-1]:.1f}) over {TRAIN_WIDTH_STEPS}; "
+        f"{tok_s:.1f} "
+        f"tokens/s; weights and AdamW states {states / 1e9:.3f} GB, peak "
+        f"{peak / 1e9:.3f} GB (max_memory_allocated above the "
+        f"{base / 1e9:.3f} GB held before; planned "
+        f"{entry['planned_bytes'] / 1e9:.1f} GB)")
+    log(f"[train_width] {arch} losses {[round(v, 6) for v in losses]}; "
+        f"global grad norm {[round(v, 6) for v in norms]}; all finite "
+        f"{finite}")
+    log(f"[train_width] {arch} bound: " + ", ".join(
+        f"{f / 1e12:.2f} TFLOP {dt} at {PEAK_RATES[dt] / 1e12:.0f} TFLOP/s"
+        for dt, f in sorted(flops.items())) + f" = {bound:.1f} ms "
+        f"({bound / med:.1%} of the step p50)")
+    if not finite or len(norms) != TRAIN_WIDTH_STEPS + 2:
+        fail(f"train_width {arch}: finite={finite}, losses {losses}, "
+             f"norms {norms}")
+    del model, state, opt, hook, step
+    torch.cuda.empty_cache()
+    return {"params": entry["params"], "moments": entry["moments"],
+            "batch": B, "seq": S, "reduced": entry["reduced"],
+            "warmup_ms": times[0] * 1e3, "step_ms": ms, "step_ms_p50": med,
+            "tokens_per_s": tok_s, "state_bytes": states, "peak_bytes": peak,
+            "losses": losses, "grad_norms": norms, "flops": flops,
+            "bound_ms": bound, "bound_share": bound / med, "profile": prof}
+
+
+def phase_train_width(torch, np) -> dict:
+    """The LM substrate's training path at the published widths (no TPU
+    kernel; plain torch ops and autograd): the plan on ``meta``
+    (:func:`train_width_plan`, printed, the left-out architectures with
+    their bytes); then each planned architecture, smallest first, through
+    :func:`train_width_f32` and :func:`train_width_arch`, its memory freed
+    before the next; then ``run_training``'s crash and resume bitwise at
+    ``TRAIN_WIDTH_RESUME``'s smoke sizes.  Sets
+    ``allow_bf16_reduced_precision_reduction = False`` as the ``lm`` phase
+    does, and ``allow_tf32 = False`` as ``main`` does (the f32 check's
+    products in full float32)."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    fns = _kernel_fns()
+    _reset(*fns.values())
+    torch.cuda.empty_cache()
+    plan = train_width_plan(torch)
+    for arch, e in plan.items():
+        st = ", ".join(f"{m} moments {b / 1e9:.1f} GB"
+                       for m, b in e["state_bytes"].items())
+        if "moments" in e:
+            log(f"[train_width] plan {arch}: {e['params']:,} parameters, "
+                f"{st}: {e['moments']} moments, batch {e['batch']} x "
+                f"{e['seq']}, reduced {e['reduced']}, "
+                f"{e['planned_bytes'] / 1e9:.1f} GB with "
+                f"{TRAIN_WIDTH_ROW / 1e9:g} GB of activations a row "
+                f"(budget {TRAIN_WIDTH_BUDGET / 1e9:g} GB)")
+        else:
+            log(f"[train_width] plan {arch} left out: {e['params']:,} "
+                f"parameters, {e['weight_bytes'] / 1e9:.1f} GB of bf16 "
+                f"weights, {st}: no moments fit "
+                f"{TRAIN_WIDTH_BUDGET / 1e9:g} GB with one row's "
+                f"{TRAIN_WIDTH_ROW / 1e9:g} GB")
+    out = {"plan": plan}
+    for arch, e in plan.items():
+        if "moments" not in e:
+            continue
+        t0 = time.perf_counter()
+        check = train_width_f32(torch, np, arch, dev)
+        res = dict(train_width_arch(torch, np, arch, e, dev), f32_check=check)
+        res["arch_wall_s"] = time.perf_counter() - t0
+        out[arch] = res
+        log(f"[train_width] {arch}: {res['arch_wall_s']:.1f} s")
+    out["resume"] = {a: train_resume(torch, np, dev, a)
+                     for a in TRAIN_WIDTH_RESUME}
+    out["launches"] = _launches()
+    log(f"[train_width] kernel launches over the phase (none on this "
+        f"path): {out['launches']}")
     return out
 
 
@@ -3642,6 +3980,10 @@ def main() -> None:
     train_res = phase_train(torch, np)
     log(f"[train] phase wall {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
+    train_width_res = phase_train_width(torch, np)
+    log(f"[train_width] phase wall {time.perf_counter() - t_phase:.1f} s "
+        f"(the script so far {time.perf_counter() - t0:.1f} s)")
+    t_phase = time.perf_counter()
     dist_res = phase_dist(torch, np, main_res)
     log(f"[dist] phase wall {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -3667,6 +4009,7 @@ def main() -> None:
         e["lm_launches"] = lm_res["launches"][name]
         e["width_launches"] = width_res["launches"][name]
         e["train_launches"] = train_res["launches"][name]
+        e["train_width_launches"] = train_width_res["launches"][name]
         e["dist_launches"] = dist_res["launches"][name]
         e["lower_launches"] = lower_res["launches"][name]
     hp = kernels["hamlet_propagate"]
@@ -3680,7 +4023,8 @@ def main() -> None:
                       "obs": obs_res, "stream": stream_res,
                       "shards": shards_res, "serve": serve_res,
                       "lm": lm_res, "width": width_res,
-                      "train": train_res, "dist": dist_res,
+                      "train": train_res, "train_width": train_width_res,
+                      "dist": dist_res,
                       "lower": lower_res},
                      default=str), flush=True)
     print(card, flush=True)

@@ -26,6 +26,9 @@ reports, in the reference's :class:`HloReport` shape:
   FLOPs, from ``torch.utils.flop_counter``'s formulas (the ones
   ``FlopCounterMode`` uses) on the local shapes.
 
+:class:`MatmulFlops`, the counter's FLOP part alone, counts a real step
+on plain tensors at little cost, split by the products' types.
+
 On a mesh of ``cpu`` devices, DTensor moves a shard between tensor dims
 with an all-gather and a chunk where a GPU mesh would use an all-to-all
 (torch logs "CPU process group does not support alltoall"), so
@@ -42,7 +45,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
-__all__ = ["CollectiveCounter", "HloReport", "COLLECTIVES"]
+__all__ = ["CollectiveCounter", "MatmulFlops", "HloReport", "COLLECTIVES"]
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -108,7 +111,41 @@ def _bytes(tensors) -> int:
                if isinstance(t, torch.Tensor))
 
 
-class CollectiveCounter(TorchDispatchMode):
+class MatmulFlops(TorchDispatchMode):
+    """Matrix-product FLOPs of the ops run inside the ``with`` block, from
+    ``torch.utils.flop_counter``'s formulas: ``flops`` in all, and
+    ``flops_by_dtype`` by the type of each product's result (e.g.
+    ``{"bfloat16": ..., "float32": ...}``), which sets the peak rate it
+    runs at.  It looks at nothing else, so a step of plain tensors runs
+    under it at little cost."""
+
+    def __init__(self):
+        super().__init__()
+        from torch.utils.flop_counter import flop_registry
+
+        self._flop_registry = flop_registry
+        self.flops = 0
+        self.flops_by_dtype = {}
+
+    def _count(self, func, args, kwargs, out) -> None:
+        flop = self._flop_registry.get(getattr(func, "_overloadpacket", None))
+        if flop is None:
+            return
+        n = flop(*args, **kwargs, out_val=out)
+        res = next(t for t in tree_flatten(out)[0]
+                   if isinstance(t, torch.Tensor))
+        dt = str(res.dtype).removeprefix("torch.")
+        self.flops += n
+        self.flops_by_dtype[dt] = self.flops_by_dtype.get(dt, 0) + n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        self._count(func, args, kwargs, out)
+        return out
+
+
+class CollectiveCounter(MatmulFlops):
     """Counts, over the ops dispatched inside the ``with`` block, what one
     rank runs: collectives by kind (bytes from local result shapes),
     operand plus result bytes of every other op, and matrix-product FLOPs.
@@ -119,13 +156,9 @@ class CollectiveCounter(TorchDispatchMode):
 
     def __init__(self):
         super().__init__()
-        from torch.utils.flop_counter import flop_registry
-
-        self._flop_registry = flop_registry
         self.collective_bytes = {k: 0 for k in COLLECTIVES}
         self.collective_counts = {k: 0 for k in COLLECTIVES}
         self.traffic_bytes = 0
-        self.flops = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -157,9 +190,7 @@ class CollectiveCounter(TorchDispatchMode):
             return out
         ins = tree_flatten((args, kwargs))[0]
         self.traffic_bytes += _bytes(ins) + _bytes(tree_flatten(out)[0])
-        flop = self._flop_registry.get(func._overloadpacket)
-        if flop is not None:
-            self.flops += flop(*args, **kwargs, out_val=out)
+        self._count(func, args, kwargs, out)
         return out
 
     def report(self) -> HloReport:

@@ -162,9 +162,15 @@ def _ssd_chunked(xh, Bm, Cm, dt, A_log, S0):
         sl = slice(c * L, (c + 1) * L)
         u_c, B_c, C_c, la_c = u[:, sl], Bm[:, sl], Cm[:, sl], loga[..., sl]
         l = per_shard(lambda t: torch.cumsum(t, dim=-1), la_c, -1)  # [B,H,L]
-        # intra-chunk: M[t, j] = (C_t . B_j) exp(l_t - l_j), j <= t
+        # intra-chunk: M[t, j] = (C_t . B_j) exp(l_t - l_j), j <= t.  The
+        # exponent is masked before the exp: above the diagonal l_t - l_j
+        # > 0 grows with the chunk's decays, and an exp that overflows
+        # there turns the masked product's gradient into 0 * inf = NaN
+        # (the reference's does, past float32's range); the values kept
+        # are the same
         cb = shard_einsum("bts,bjs->btj", C_c.float(), B_c.float())
-        dec = torch.exp(l[..., :, None] - l[..., None, :])  # [B, H, L, L]
+        dec = torch.exp(torch.where(causal, l[..., :, None] - l[..., None, :],
+                                    -math.inf))             # [B, H, L, L]
         M = torch.where(causal, cb[:, None] * dec, 0.0).to(m_dtype)
         y = shard_einsum("bhtj,bjhp->bthp", M.float(),
                          u_c.to(m_dtype).float())
