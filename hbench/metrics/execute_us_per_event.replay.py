@@ -1,0 +1,7 @@
+"""execute_us_per_event.replay: the engine's own execute timer
+(``RunStats.execute_s``) over the window, in microseconds per event."""
+
+
+def read(rec):
+    n = rec["events"]
+    return rec["stats"]["execute_s"] / n * 1e6 if n else None
