@@ -37,11 +37,18 @@ Residency rules (cross-pane micro-batching support):
   flush is launched before any result is pulled back, and the whole flush
   then syncs with **one** ``ops.device_get_all`` call, keeping bucket
   outputs device-resident for the duration of the flush.
+
+A flush stages every bucket, then launches every bucket, then fetches:
+with an ``obs`` attached these are its three steps, each timed once
+(``execute.stage``, ``execute.launch``, ``execute.wait``; see
+``Observability.step``), with the bytes each device backend moves each
+way.  The unbatched legacy mode is timed only as the phase's total.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from time import perf_counter
 
 import numpy as np
 
@@ -96,9 +103,18 @@ class PaneBatchExecutor:
 
     # -- execution --
 
-    def flush(self) -> None:
+    def flush(self, t_stage: float | None = None) -> None:
+        """Execute the backlog.  ``t_stage``: the ``perf_counter`` reading
+        at which the caller began building these jobs' injection rows, the
+        start of the staging step (default: now)."""
+        obs = self.obs
+        if obs is not None and t_stage is None:
+            t_stage = perf_counter()
         jobs, self._pending = self._pending, []
         if not jobs:
+            if obs is not None:
+                obs.step("execute.stage", "execute_stage_s", t_stage,
+                         perf_counter())
             return
         self.flushes += 1
         l0 = self.launches
@@ -122,9 +138,17 @@ class PaneBatchExecutor:
                 b = j.base.shape[0]
                 j.mask = np.tril(np.ones((b, b)), k=-1)
                 masked.append(j)
+        staged = self._stage_dense(dense) + self._stage_masked(masked)
+        if obs is not None:
+            t_launch = perf_counter()
+            obs.step("execute.stage", "execute_stage_s", t_stage, t_launch)
         # launch every bucket, then resolve the whole flush with one host
         # sync (device backends stay device-resident until here)
-        launched = self._launch_dense(dense) + self._launch_masked(masked)
+        launched = [(bucket, shape, sl, self._launch(base, mask))
+                    for bucket, shape, sl, base, mask in staged]
+        if obs is not None:
+            t_wait = perf_counter()
+            obs.step("execute.launch", "execute_launch_s", t_launch, t_wait)
         outs = ops.device_get_all([o for _, _, _, o in launched])
         full: dict[int, np.ndarray] = {}
         for (bucket, shape, sl, _), host in zip(launched, outs):
@@ -140,79 +164,95 @@ class PaneBatchExecutor:
             arr = full[id(bucket)]
             for i, j in enumerate(bucket):
                 j.result = arr[i, : j.base.shape[0]]
-        if self.obs is not None:
-            self.obs.observe("batch_exec.launches_per_flush",
-                             self.launches - l0, OCCUPANCY_BUCKETS)
+        if obs is None:
+            return
+        obs.observe("batch_exec.launches_per_flush", self.launches - l0,
+                    OCCUPANCY_BUCKETS)
+        if self.backend != "np":
+            # what the device backends copy: each base, and each mask in
+            # the base's dtype (``ops.propagate_batched``)
+            obs.step_count("execute_h2d_bytes", sum(
+                base.nbytes + (0 if mask is None
+                               else mask.size * base.itemsize)
+                for _, _, _, base, mask in staged))
+            obs.step_count("execute_d2h_bytes", sum(h.nbytes for h in outs))
+        # the flush's device outputs and pinned host copies are freed
+        # inside the wait step, not after its clock stops
+        del staged, launched, outs
+        obs.step("execute.wait", "execute_wait_s", t_wait, perf_counter())
 
     def _slices(self, nb: int) -> list[slice]:
         if self.shard_slices is None:
             return [slice(0, nb)]
         return list(self.shard_slices(nb))
 
-    def _stage(self, kind: str, nb: int, item_shape: tuple,
+    def _stage(self, key: tuple, nb: int, item_shape: tuple,
                dtype) -> np.ndarray:
-        """A reusable stacked staging buffer (numpy backend only)."""
+        """A stacked staging buffer for the bucket ``key``, reused across
+        flushes on the numpy backend (each bucket its own: every bucket of
+        a flush is staged before any is launched)."""
         if self.backend != "np":
             return np.empty((nb,) + item_shape, dtype=dtype)
-        key = (kind,) + item_shape + (np.dtype(dtype),)
+        key = key + (np.dtype(dtype),)
         buf = self._staging.get(key)
         if buf is None or buf.shape[0] < nb:
             buf = np.empty((nb,) + item_shape, dtype=dtype)
             self._staging[key] = buf
         return buf[:nb]
 
-    def _launch_dense(self, jobs: list[PropagateJob]) -> list:
+    def _launch(self, base: np.ndarray, mask) -> object:
+        """One launch: the dense kernel (``mask is None``), the stacked
+        row-loop oracle for tiny masked buckets on the numpy backend, or
+        the masked kernel."""
+        self.launches += 1
+        if mask is None:
+            return ops.propagate_dense_batched(base, backend=self.backend,
+                                               device=self.device)
+        if self.backend == "np" and base.shape[1] < _FAST_MIN_B:
+            from ..kernels import ref
+
+            # b row steps for the whole bucket, each slice bitwise equal to
+            # the per-burst call
+            return ref.numpy_prefix_propagate_batched(base, mask)
+        return ops.propagate_batched(base, mask, backend=self.backend,
+                                     device=self.device)
+
+    def _stage_dense(self, jobs: list[PropagateJob]) -> list:
         buckets: dict[tuple, list[PropagateJob]] = {}
         for j in jobs:
             b, d = j.base.shape
             buckets.setdefault((_next_pow2(b), d, j.base.dtype), []).append(j)
-        launched = []
+        staged = []
         for (bp, d, dtype), bucket in buckets.items():
             nb = len(bucket)
             if self.obs is not None:
                 self.obs.observe("batch_exec.bucket_occupancy", nb,
                                  OCCUPANCY_BUCKETS)
-            stacked = self._stage("dense", nb, (bp, d), dtype)
+            stacked = self._stage(("dense", bp, d), nb, (bp, d), dtype)
             for i, j in enumerate(bucket):
                 bj = j.base.shape[0]
                 stacked[i, :bj] = j.base
                 stacked[i, bj:] = 0.0
-            for sl in self._slices(nb):
-                self.launches += 1
-                launched.append((bucket, (nb, bp, d), sl,
-                                 ops.propagate_dense_batched(
-                                     stacked[sl], backend=self.backend,
-                                     device=self.device)))
-        return launched
+            staged += [(bucket, (nb, bp, d), sl, stacked[sl], None)
+                       for sl in self._slices(nb)]
+        return staged
 
-    def _launch_masked(self, jobs: list[PropagateJob]) -> list:
-        from ..kernels import ref
-
+    def _stage_masked(self, jobs: list[PropagateJob]) -> list:
         buckets: dict[tuple, list[PropagateJob]] = {}
         for j in jobs:
             buckets.setdefault(j.base.shape + (j.base.dtype,), []).append(j)
-        launched = []
+        staged = []
         for (b, d, dtype), bucket in buckets.items():
             nb = len(bucket)
             if self.obs is not None:
                 self.obs.observe("batch_exec.bucket_occupancy", nb,
                                  OCCUPANCY_BUCKETS)
-            base = self._stage("mbase", nb, (b, d), dtype)
-            mask = self._stage("mmask", nb, (b, b), bucket[0].mask.dtype)
+            base = self._stage(("mbase", b, d), nb, (b, d), dtype)
+            mask = self._stage(("mmask", b, d, np.dtype(dtype)), nb, (b, b),
+                               bucket[0].mask.dtype)
             for i, j in enumerate(bucket):
                 base[i] = j.base
                 mask[i] = j.mask
-            small = self.backend == "np" and b < _FAST_MIN_B
-            for sl in self._slices(nb):
-                self.launches += 1
-                if small:
-                    # stacked row-loop oracle: b row steps for the whole
-                    # bucket, each slice bitwise equal to the per-burst call
-                    out = ref.numpy_prefix_propagate_batched(base[sl],
-                                                             mask[sl])
-                else:
-                    out = ops.propagate_batched(base[sl], mask[sl],
-                                                backend=self.backend,
-                                                device=self.device)
-                launched.append((bucket, (nb, b, d), sl, out))
-        return launched
+            staged += [(bucket, (nb, b, d), sl, base[sl], mask[sl])
+                       for sl in self._slices(nb)]
+        return staged

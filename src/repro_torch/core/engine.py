@@ -89,10 +89,13 @@ counters, so benchmarks read the phase split straight from the engine.
 Observability: every layer accepts an optional ``obs=`` handle (a
 :class:`repro_torch.obs.Observability` facade — span tracer, metrics registry,
 sharing-decision audit log).  Phase spans are recorded from the *same*
-``perf_counter`` readings that feed ``RunStats``, so per-pane spans sum to
-the phase totals; the audit log captures each optimizer share/no-share
-decision verbatim as it enters the plan-cache key.  With ``obs=None``
-(default) every hook is a single guarded attribute test — zero cost.
+``perf_counter`` readings that feed ``RunStats``, so phase spans sum to
+the phase totals (a flush of K > 1 panes is one span a phase, timed once);
+the steps inside the phases are timed the same way into the
+``RunStats.STEP_FIELDS`` clocks and ``"step"`` spans; the audit log
+captures each optimizer share/no-share decision verbatim as it enters the
+plan-cache key.  With ``obs=None`` (default) every hook is a single
+guarded attribute test — zero cost.
 
 Host/device residency on a fully-warm flush: the host side is the batched
 prologue (numpy vector passes), the plan-cache dict probes, and the
@@ -317,6 +320,23 @@ class RunStats:
     # plan-cache traffic (counted only when a cache is attached)
     plan_cache_hits: int = 0
     plan_cache_misses: int = 0
+    # step clocks (seconds) and counts inside the phases, kept only while
+    # an Observability is attached (see STEP_FIELDS)
+    plan_prologue_s: float = 0.0
+    plan_decide_s: float = 0.0
+    plan_build_s: float = 0.0
+    execute_stage_s: float = 0.0
+    execute_launch_s: float = 0.0
+    execute_wait_s: float = 0.0
+    execute_h2d_bytes: int = 0
+    execute_d2h_bytes: int = 0
+    finalize_prep_s: float = 0.0
+    finalize_rounds_s: float = 0.0
+    finalize_wait_s: float = 0.0
+    ingress_s: float = 0.0
+    admit_s: float = 0.0
+    gc_s: float = 0.0
+    gc_collections: int = 0
 
     # Fields whose totals are invariant under group-disjoint sharding of the
     # stream: a fleet of runtimes processing a partition of the groups
@@ -329,6 +349,24 @@ class RunStats:
     # (never the results).
     COUNT_FIELDS: ClassVar[tuple[str, ...]] = (
         "events", "bursts", "decisions", "panes", "windows_emitted")
+
+    # The step clocks, read only with an Observability attached (all stay
+    # 0 without one).  Plan's three lie inside ``plan_s``; what they leave
+    # of it is signature assembly and the plan-cache lookup.  Execute's
+    # three tile ``execute_s`` (the submits' injection rows and the
+    # executor's bucketing and stacking; the ``ops.propagate*`` calls with
+    # their host-to-device copies; the fetch and unpacking), as
+    # finalize's tile ``finalize_s`` with the fold executor (flush plan and
+    # ``S``; the scan launch or host rounds; the fetch and scatter), but
+    # not its sequential replay.  ``ingress_s`` / ``admit_s`` are the
+    # streaming layer's ``offer`` and admission, outside the four phases;
+    # ``gc_s`` / ``gc_collections`` the collector's pauses of the process.
+    STEP_FIELDS: ClassVar[tuple[str, ...]] = (
+        "plan_prologue_s", "plan_decide_s", "plan_build_s",
+        "execute_stage_s", "execute_launch_s", "execute_wait_s",
+        "execute_h2d_bytes", "execute_d2h_bytes",
+        "finalize_prep_s", "finalize_rounds_s", "finalize_wait_s",
+        "ingress_s", "admit_s", "gc_s", "gc_collections")
 
     def merge(self, o: "RunStats") -> None:
         for f in self.__dataclass_fields__:
@@ -871,30 +909,26 @@ class PaneProcessor:
             key = ("F", self.max_local_basis, rs, sig_mv)
             plan = cache.get(key)
             if plan is not None:
-                stats.plan_cache_hits += 1
-                if obs is not None:
-                    obs.cache_event(True, pkey)
-                plan.apply_stats(stats)
-                self._last_host = plan
-                return self._instantiate_fast(plan, runs, ev, mv_type)
+                return self._hit(plan, stats, pkey, self._instantiate_fast,
+                                 runs, ev, mv_type)
             stats.plan_cache_misses += 1
             if obs is not None:
                 obs.cache_event(False, pkey)
         elif dyn_fast:
+            t_d = perf_counter() if obs is not None else 0.0
             dyn_groups, key = self._dyn_fast_groups(runs, ev, mv_type,
                                                     mv_bytes, present, stats,
                                                     codes=pro.codes,
                                                     pkey=pkey, audit=audit,
                                                     runs_shape=rs,
                                                     sig_mv=sig_mv)
+            if obs is not None:
+                obs.step("plan.decide", "plan_decide_s", t_d, perf_counter(),
+                         stats)
             plan = cache.get(key)
             if plan is not None:
-                stats.plan_cache_hits += 1
-                if obs is not None:
-                    obs.cache_event(True, pkey)
-                plan.apply_stats(stats)
-                self._last_host = plan
-                return self._instantiate_fast(plan, runs, ev, mv_type)
+                return self._hit(plan, stats, pkey, self._instantiate_fast,
+                                 runs, ev, mv_type)
             stats.plan_cache_misses += 1
             if obs is not None:
                 obs.cache_event(False, pkey)
@@ -961,12 +995,16 @@ class PaneProcessor:
                 else:
                     groups = []
                     if len(kle) >= 2:
+                        # a clock a burst, and no span
+                        t_d = perf_counter() if obs is not None else 0.0
                         d_rows = (None if static_policy else
                                   self._divergence_rows(q_pos, kle, el,
                                                         mvec, epm))
                         shared_sets = self.policy.decide(
                             ctx=ctx, el=el, candidates=kle, d_rows=d_rows,
                             b=b, n=stats.events, stats=stats)
+                        if obs is not None:
+                            stats.plan_decide_s += perf_counter() - t_d
                         in_shared = set(qq for s in shared_sets for qq in s)
                         groups.extend([s for s in shared_sets
                                        if len(s) >= 2])
@@ -1008,15 +1046,12 @@ class PaneProcessor:
                 audit.note_pane(pkey, tuple(key_groups), comp=self.comp)
             plan = cache.get(key)
             if plan is not None:
-                stats.plan_cache_hits += 1
-                if obs is not None:
-                    obs.cache_event(True, pkey)
-                plan.apply_stats(stats)
-                self._last_host = plan
-                return self._instantiate(plan, plan_bursts)
+                return self._hit(plan, stats, pkey, self._instantiate,
+                                 plan_bursts)
             stats.plan_cache_misses += 1
             if obs is not None:
                 obs.cache_event(False, pkey)
+        t_b = perf_counter() if obs is not None else 0.0
         before = cache.snapshot_stats(stats) if cache is not None else None
 
         steps = self._build_steps(plan_bursts, stats)
@@ -1036,6 +1071,25 @@ class PaneProcessor:
                             stat_delta=delta, zero_copy=zero_copy)
             cache.put(key, plan)
             self._last_host = plan
+        if obs is not None:
+            obs.step("plan.build", "plan_build_s", t_b, perf_counter(), stats)
+        return steps
+
+    def _hit(self, plan: PanePlan, stats: RunStats, pkey, instantiate,
+             *args) -> list:
+        """A plan-cache hit: count it, replay the plan's stat delta, and
+        rehydrate its steps with ``instantiate`` (the build step)."""
+        stats.plan_cache_hits += 1
+        obs = self.obs
+        if obs is not None:
+            obs.cache_event(True, pkey)
+        plan.apply_stats(stats)
+        self._last_host = plan
+        if obs is None:
+            return instantiate(plan, *args)
+        t0 = perf_counter()
+        steps = instantiate(plan, *args)
+        obs.step("plan.build", "plan_build_s", t0, perf_counter(), stats)
         return steps
 
     def _build_steps(self, plan_bursts: list, stats: RunStats) -> list:
@@ -1694,53 +1748,53 @@ class PaneMicroBatcher:
                 for p, pro in zip(plist, proc.plan_prologues(
                         [q.pane for q in plist])):
                     pros[id(p)] = pro
+            if obs is not None:
+                obs.step("plan.prologue", "plan_prologue_s", t0,
+                         perf_counter())
             for p in pend:
                 p.steps = p.proc._plan_finish(p.pane, pros[id(p)], p.stats)
                 p.plan_host = p.proc._last_host
                 p.jobs = [None] * len(p.steps)
-        dt = (perf_counter() - t0) / len(pend)
+        self._phase(pend, "plan", t0, perf_counter())
+
+    def _phase(self, pend: list[_PendingPane], phase: str, t0: float,
+               t1: float) -> None:
+        """Charge one phase of the flush, timed once from ``t0`` to ``t1``,
+        to its panes: an equal share of it to each pane's ``RunStats``
+        timer, and to the phase's span (one for the flush at K > 1)."""
+        dt = (t1 - t0) / len(pend)
+        attr = f"{phase}_s"
         for p in pend:
-            p.stats.plan_s += dt
-        if obs is not None:
-            if obs.tracing:
-                for i, p in enumerate(pend):
-                    obs.pane_phase("plan", t0 + i * dt, dt, key=p.pane_key)
-            else:
-                obs.pane_phase_n("plan", dt, len(pend))
+            setattr(p.stats, attr, getattr(p.stats, attr) + dt)
+        if self.obs is not None:
+            self.obs.flush_phase(phase, t0, t1, len(pend))
 
     def drain(self) -> list[_PendingPane]:
         pend, self._pending = self._pending, []
         if not pend:
             return pend
+        obs = self.obs
+        args = (obs.flush_begin([p.stats for p in pend],
+                                [p.pane_key for p in pend])
+                if obs is not None else None)
         self._plan_pending(pend)
         ex = self.executor
-        obs = self.obs
-        sp = (obs.span("flush", args={"panes": len(pend)})
-              if obs is not None else NULL_SPAN)
+        sp = obs.span("flush", args=args) if obs is not None else NULL_SPAN
         with sp:
-            t0 = perf_counter()
+            t0 = t_stage = perf_counter()
             with np.errstate(over="ignore", invalid="ignore"):
-                for p in pend:
-                    p.proc.submit_execute(p.steps, p.stats, 1, p.jobs)
-                ex.flush()
-                for p in pend:
-                    p.proc.submit_execute(p.steps, p.stats, 2, p.jobs)
-                ex.flush()
-            # amortize the fused launch wall time across the micro-batch
-            dt = (perf_counter() - t0) / len(pend)
-            for p in pend:
-                p.stats.execute_s += dt
-            if obs is not None:
-                if obs.tracing:
-                    # the same amortized dt, tiled so pane spans don't overlap
-                    for i, p in enumerate(pend):
-                        obs.pane_phase("execute", t0 + i * dt, dt,
-                                       key=p.pane_key)
-                else:
-                    obs.pane_phase_n("execute", dt, len(pend))
+                for round_ in (1, 2):
+                    for p in pend:
+                        p.proc.submit_execute(p.steps, p.stats, round_,
+                                              p.jobs)
+                    # the submits' injection rows are the flush's staging
+                    ex.flush(t_stage)
+                    if obs is not None:
+                        t_stage = perf_counter()
+            self._phase(pend, "execute", t0, perf_counter())
             fe = self.fold_exec
             if fe is not None:
-                fsp = (obs.span("fold_flush", args={"panes": len(pend)})
+                fsp = (obs.span("fold_flush", args=args)
                        if obs is not None else NULL_SPAN)
                 with fsp:
                     t1 = perf_counter()
@@ -1749,16 +1803,9 @@ class PaneMicroBatcher:
                     fe.flush()
                     for p, fj in zip(pend, fjobs):
                         p.M = fj.M
-                    dt = (perf_counter() - t1) / len(pend)
-                    for p in pend:
-                        p.stats.finalize_s += dt
-                    if obs is not None:
-                        if obs.tracing:
-                            for i, p in enumerate(pend):
-                                obs.pane_phase("finalize", t1 + i * dt, dt,
-                                               key=p.pane_key)
-                        else:
-                            obs.pane_phase_n("finalize", dt, len(pend))
+                    self._phase(pend, "finalize", t1, perf_counter())
+        if obs is not None:
+            obs.flush_end()
         return pend
 
 
@@ -1815,8 +1862,10 @@ class HamletRuntime:
     ``shard_slices`` splits each bucket's launch into sub-batch launches
     (the pane-batch sharding hook of ``core/batch_exec.py``).
     ``obs`` attaches a :class:`repro_torch.obs.Observability` facade: phase spans,
-    lifecycle instants, executor metrics and the sharing-decision audit log
-    all record through it (None — the default — costs nothing).
+    step clocks and spans (``RunStats.STEP_FIELDS``), the collector's
+    pauses, lifecycle instants, executor metrics and the sharing-decision
+    audit log all record through it (None — the default — costs nothing;
+    ``obs.detach()`` removes its collector hook).
     """
 
     def __init__(self, workload: Workload, policy=None, backend: str = "cuda",
@@ -1854,6 +1903,7 @@ class HamletRuntime:
             self.executor.obs = obs
             if self.fold_exec is not None:
                 self.fold_exec.obs = obs
+            obs.attach(self)
         self.stats = RunStats()
         self._empty_M: list[np.ndarray] | None = None
 

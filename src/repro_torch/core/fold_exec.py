@@ -68,6 +68,7 @@ from __future__ import annotations
 import itertools
 from collections import OrderedDict
 from dataclasses import dataclass, field
+from time import perf_counter
 
 import numpy as np
 import torch
@@ -416,7 +417,11 @@ class FoldExecutor:
 
     def _flush(self, jobs: list[FoldJob]) -> None:
         # group pending jobs by component context; each ctx group holds a
-        # stacked state and its own merged flush plan
+        # stacked state and its own merged flush plan.  With an obs attached
+        # each group is three steps, each timed once: ``finalize.prep`` (the
+        # flush plan and ``S``), ``finalize.rounds`` (the scan launch or the
+        # host rounds) and ``finalize.wait`` (the fetch and the scatter).
+        obs = self.obs
         by_ctx: dict[int, list[FoldJob]] = {}
         ctx_of: dict[int, object] = {}
         for j in jobs:
@@ -425,6 +430,7 @@ class FoldExecutor:
             ctx_of[cid] = j.proc.ctx
 
         for cid, cjobs in by_ctx.items():
+            t_prep = perf_counter() if obs is not None else 0.0
             ctx = ctx_of[cid]
             fp = self._plan(cid, cjobs)
             # flush-global dynamic S fills: one stacked column sum per
@@ -442,26 +448,41 @@ class FoldExecutor:
                      else jb[row].jobs[si][1][u].result
                      for row, si, u in refs])
                 S_flat[ords] = np.add.reduceat(cat, starts, axis=0)
-            if fp.scan is not None:
+            sp = fp.scan
+            if sp is None:
+                st = _CtxState(ctx, cjobs)
+            if obs is not None:
+                t_rounds = perf_counter()
+                obs.step("finalize.prep", "finalize_prep_s", t_prep, t_rounds)
+            if sp is not None:
                 # device-resident warm path: the whole fold chain is one
                 # device program and one host sync, independent of depth
-                st = self._run_scan(ctx, cjobs, fp, S_flat)
+                Zf = self._run_scan(fp, S_flat)
+            elif fp.fast is not None:
+                self._run_fast(st, fp, S_flat)
             else:
-                st = _CtxState(ctx, cjobs)
-                if fp.fast is not None:
-                    self._run_fast(st, fp, S_flat)
-                else:
-                    for rd in fp.rounds:
-                        for row, hits in rd.negs:
-                            st.apply_neg(row, hits)
-                        for mb in rd.buckets:
-                            if mb.d:
-                                self._fold_bucket_div(st, mb, cjobs)
-                            else:
-                                self._fold_bucket_fast(st, mb, S_flat)
+                for rd in fp.rounds:
+                    for row, hits in rd.negs:
+                        st.apply_neg(row, hits)
+                    for mb in rd.buckets:
+                        if mb.d:
+                            self._fold_bucket_div(st, mb, cjobs)
+                        else:
+                            self._fold_bucket_fast(st, mb, S_flat)
+            if obs is not None:
+                t_wait = perf_counter()
+                obs.step("finalize.rounds", "finalize_rounds_s", t_rounds,
+                         t_wait)
+            if sp is not None:
+                Z = ops.device_get_all([Zf])[0][:-1].reshape(sp.J, sp.k,
+                                                              sp.R, sp.C)
+                st = _CtxState(ctx, cjobs, Z=Z)
             MJ = st.assemble()
             for row, j in enumerate(cjobs):
                 j.M = MJ[row].copy()
+            if obs is not None:
+                obs.step("finalize.wait", "finalize_wait_s", t_wait,
+                         perf_counter())
 
     # -- flush-plan construction (cached per schedule combination) --
 
@@ -699,9 +720,9 @@ class FoldExecutor:
 
     # -- compiled execution forms for scannable plans --
 
-    def _run_scan(self, ctx, cjobs: list[FoldJob], fp: _FlushPlan,
-                  S_flat: np.ndarray) -> _CtxState:
-        """Run the whole flush as one device launch + one host sync.
+    def _run_scan(self, fp: _FlushPlan, S_flat: np.ndarray):
+        """Launch the whole flush as one device program; returns the
+        device-resident scanned state (one host sync fetches it).
 
         Only the per-flush ``S`` block crosses to the device; every index
         operand and the fresh state live there already.  Counts as a single
@@ -714,12 +735,9 @@ class FoldExecutor:
                              max(len(rd.buckets[0].flat_gq)
                                  for rd in fp.rounds), OCCUPANCY_BUCKETS)
         S_pad = np.concatenate([S_flat, np.zeros((1, S_flat.shape[1]))])
-        Zf = ops.fold_rounds_scan(sp.Z0, S_pad, sp.PTM, sp.GQ, sp.SIDX,
-                                  sp.SC, sp.ER, nu=sp.nu, t=sp.t,
-                                  n_used=sp.n_used)
-        Z = ops.device_get_all([Zf])[0][:-1].reshape(sp.J, sp.k, sp.R,
-                                                      sp.C)
-        return _CtxState(ctx, cjobs, Z=Z)
+        return ops.fold_rounds_scan(sp.Z0, S_pad, sp.PTM, sp.GQ, sp.SIDX,
+                                    sp.SC, sp.ER, nu=sp.nu, t=sp.t,
+                                    n_used=sp.n_used)
 
     def _run_fast(self, st: _CtxState, fp: _FlushPlan,
                   S_flat: np.ndarray) -> None:

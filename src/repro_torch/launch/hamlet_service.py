@@ -18,7 +18,15 @@ cpu`` is given).
 as Chrome-trace JSONL (convert with ``python -m repro_torch.obs.trace
 out.jsonl out.json`` and load in Perfetto), and the run report gains the
 per-phase span-sum vs ``RunStats`` check plus the sharing-decision audit
-summary; ``--trace-sample N`` traces every Nth pane's track.
+summary; ``--trace-sample N`` traces every Nth pane's track.  The trace
+holds the steps inside each phase as ``"step"`` spans and, first, a
+``clock_sync`` event pairing its origin on ``perf_counter`` and the Unix
+epoch.  To read it on one timeline with a ``torch.profiler`` trace of
+the same run, export it on the profiler's clock instead:
+``obs.tracer.export_jsonl(path, epoch_ns=base)``, with ``base`` the
+``baseTimeNanoseconds`` of the profiler's ``export_chrome_trace`` file,
+whose ``ts`` then share one axis with it: put both event lists in one
+``traceEvents`` file for Perfetto.
 
 ``--overload`` switches to the bounded-latency runtime
 (:class:`repro_torch.overload.OverloadRuntime`): an overload scenario

@@ -6,18 +6,35 @@ formatted lazily at export.  The layout follows the Chrome trace event
 format so the output loads directly in Perfetto / ``chrome://tracing``:
 
 * ``tid 0`` is the *engine* track: nested ``B``/``E`` duration spans
-  (micro-batch flush, fold flush, service epochs) plus engine-wide
-  ``X`` phase events that have no pane attribution.
+  (micro-batch flush, fold flush, service epochs); at K > 1 one measured
+  ``X`` phase span per flush and phase (plan / execute / finalize) with
+  ``args`` ``{"flush": id, "panes": K, "pane_keys": [...]}``; the
+  top-level host phases ``ingress`` and ``admit`` of the streaming layer;
+  and the ``X`` *step* spans (category ``"step"``) inside the phases:
+  ``plan.prologue``, ``plan.decide``, ``plan.build``, ``execute.stage``,
+  ``execute.launch``, ``execute.wait``, ``finalize.prep``,
+  ``finalize.rounds``, ``finalize.wait`` and the collector's full passes,
+  ``gc``.  Every span of one flush carries its ``flush`` id in ``args``.
 * ``tid >= 1`` is one track per sampled pane, keyed by
-  ``(group, pane_t0)``: ``X`` complete events for the four pipeline
-  phases (plan / execute / finalize / fold) and ``i`` instant events for
-  lifecycle marks (ingest -> seal -> plan -> execute -> emit ->
+  ``(group, pane_t0)``: at K = 1 the ``X`` phase spans of the pane (and
+  its step spans), the ``fold`` phase at any K, and ``i`` instant events
+  for lifecycle marks (ingest -> seal -> plan -> execute -> emit ->
   revise / evict) and plan-cache lookups.
 
-Timestamps are microseconds relative to tracer construction, taken from
+Timestamps are microseconds relative to the tracer's origin, taken from
 the *same* ``perf_counter`` readings the engine already uses for
-``RunStats`` — so per-pane phase spans sum to the ``RunStats`` phase
-totals by construction.
+``RunStats`` — so phase spans sum to the ``RunStats`` phase totals by
+construction.  A flush of K > 1 panes is timed once, as a whole: no
+per-pane span is made up for it.
+
+The origin is anchored as a pair of ``perf_counter_ns`` and
+``time.time_ns`` readings (the tightest of a few back-to-back samples),
+written at export as a ``clock_sync`` metadata event.
+:meth:`Tracer.unix_ns` places any ``ts`` on the Unix epoch, the clock of
+``torch.profiler``'s ``start_ns()``; ``export_jsonl(path, epoch_ns=...)``
+writes ``ts`` on that clock, so the program's events and those of the
+profiler's ``export_chrome_trace`` (pass its ``baseTimeNanoseconds``)
+share one time axis and load as one Perfetto timeline.
 
 The export is strict JSONL (one event object per line).  Perfetto loads
 the JSONL directly; for viewers that require the enveloped form, run::
@@ -32,10 +49,23 @@ from __future__ import annotations
 import json
 import os
 from collections import deque
-from time import perf_counter
+from time import perf_counter, perf_counter_ns, time_ns
 
 _PHASES = ("plan", "execute", "finalize", "fold")
 _MISSING = object()
+
+
+def _clock_pair(samples: int = 5) -> tuple[int, int]:
+    """One instant read on both clocks: ``(perf_counter_ns, time_ns)``,
+    from the tightest of ``samples`` back-to-back readings."""
+    best = None
+    for _ in range(samples):
+        a = perf_counter_ns()
+        u = time_ns()
+        b = perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) // 2, u)
+    return best[1], best[2]
 
 
 class _NullSpan:
@@ -88,7 +118,8 @@ class Tracer:
         self.sample = max(1, int(sample))
         self.enabled = self.capacity > 0
         self._events = deque(maxlen=max(1, self.capacity))
-        self._t0 = perf_counter()
+        self._t0_ns, self._unix0_ns = _clock_pair()
+        self._t0 = self._t0_ns / 1e9
         self._stack: list[str] = []
         self._tids: dict = {}
         self._next_tid = 1
@@ -100,6 +131,11 @@ class Tracer:
 
     def _ts(self, t: float | None = None) -> float:
         return ((perf_counter() if t is None else t) - self._t0) * 1e6
+
+    def unix_ns(self, ts: float) -> int:
+        """A tracer timestamp (us since the origin) as Unix-epoch ns, the
+        clock of ``torch.profiler``'s ``start_ns()``."""
+        return self._unix0_ns + round(ts * 1e3)
 
     def _emit(self, ev: tuple) -> None:
         if len(self._events) == self._events.maxlen:
@@ -169,12 +205,24 @@ class Tracer:
     def __len__(self) -> int:
         return len(self._events)
 
-    def events(self) -> list[dict]:
-        """Materialise the ring as Chrome trace event dicts."""
-        out = []
-        for ph, name, cat, ts, dur, tid, args in self._events:
+    def events(self, epoch_ns: int | None = None) -> list[dict]:
+        """Materialise the ring as Chrome trace event dicts, after a
+        ``clock_sync`` metadata event holding the origin on both clocks.
+        With ``epoch_ns``, each ``ts`` is microseconds after that Unix time
+        (0: the Unix epoch itself) instead of after the tracer's origin."""
+        if not self.enabled:
+            return []
+        shift = (0.0 if epoch_ns is None
+                 else (self._unix0_ns - epoch_ns) / 1e3)
+        out = [{"ph": "M", "name": "clock_sync", "cat": "__metadata",
+                "ts": shift, "pid": self._pid, "tid": 0,
+                "args": {"perf_counter_ns": self._t0_ns,
+                         "unix_ns": self._unix0_ns}}]
+        # a snapshot: the collector's hook may record a span while the
+        # loop allocates (the ring is never iterated in place)
+        for ph, name, cat, ts, dur, tid, args in list(self._events):
             ev = {"ph": ph, "name": name, "cat": cat,
-                  "ts": round(ts, 3), "pid": self._pid, "tid": tid}
+                  "ts": round(ts + shift, 3), "pid": self._pid, "tid": tid}
             if ph == "X":
                 ev["dur"] = round(dur, 3)
             elif ph == "i":
@@ -184,9 +232,11 @@ class Tracer:
             out.append(ev)
         return out
 
-    def export_jsonl(self, path) -> int:
-        """Write strict JSONL (one event per line); returns event count."""
-        evs = self.events()
+    def export_jsonl(self, path, epoch_ns: int | None = None) -> int:
+        """Write strict JSONL (one event per line); returns event count.
+        ``epoch_ns`` as in :meth:`events`: give a ``torch.profiler``
+        chrome trace's ``baseTimeNanoseconds`` to share its time axis."""
+        evs = self.events(epoch_ns)
         with open(path, "w") as f:
             for ev in evs:
                 f.write(json.dumps(ev, sort_keys=True))
@@ -196,7 +246,7 @@ class Tracer:
     def phase_totals(self) -> dict:
         """Seconds of recorded ``X`` phase-span time, keyed by phase name."""
         tot = {}
-        for ph, name, cat, _ts, dur, _tid, _args in self._events:
+        for ph, name, cat, _ts, dur, _tid, _args in list(self._events):
             if ph == "X" and cat == "phase":
                 tot[name] = tot.get(name, 0.0) + dur / 1e6
         return tot

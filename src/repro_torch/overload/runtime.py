@@ -249,8 +249,16 @@ class OverloadRuntime:
     # -- producer side --
 
     def offer(self, batch: EventBatch) -> int:
-        """Offer arrivals; honours ingress backpressure.  Returns accepted."""
-        return self.queue.offer(batch)
+        """Offer arrivals; honours ingress backpressure.  Returns accepted.
+        With an ``obs`` attached the call is the ``ingress`` phase."""
+        obs = self.obs
+        if obs is None:
+            return self.queue.offer(batch)
+        t0 = time.perf_counter()
+        n = self.queue.offer(batch)
+        obs.host_phase("ingress", "ingress_s", self.stats, t0,
+                       time.perf_counter())
+        return n
 
     @property
     def t_now(self) -> int:
@@ -268,7 +276,11 @@ class OverloadRuntime:
         folded in here.  They are charged to the error accountant as late,
         unwitnessed shed events so every certificate they could invalidate
         is withdrawn (the event-time layer is the path that *revises* such
-        events instead of dropping them)."""
+        events instead of dropping them).  With an ``obs`` attached the
+        poll, late split and shedding are the ``admit`` phase, as is the
+        partition by group ahead of the micro-batcher."""
+        obs = self.obs
+        t_admit = time.perf_counter() if obs is not None else 0.0
         t0 = self._t
         ev = self.queue.poll_until(t0 + self.pane)
         n_late = 0
@@ -299,6 +311,9 @@ class OverloadRuntime:
 
         self._backlog.append((t0, n, keep_n, n_late, kept))
         self._t = t0 + self.pane
+        if obs is not None:
+            obs.host_phase("admit", "admit_s", self.stats, t_admit,
+                           time.perf_counter())
         if len(self._backlog) >= self.micro_batch:
             self._drain_backlog()
 
@@ -380,8 +395,10 @@ class OverloadRuntime:
         """Fused execution of K admitted panes: plan every (pane, group,
         component) into one micro-batch, drain once — one launch per size
         bucket per K panes — then finalize and fold in stream order."""
+        obs = self.rt.obs
+        t_admit = time.perf_counter() if obs is not None else 0.0
         mb = PaneMicroBatcher(self.rt.executor, k=len(panes),
-                              fold_exec=self.rt.fold_exec, obs=self.rt.obs)
+                              fold_exec=self.rt.fold_exec, obs=obs)
         planned: list = []
         for t0, kept in panes:
             parts = kept.partition_by_group() if len(kept) else {}
@@ -393,6 +410,9 @@ class OverloadRuntime:
                 (drv, parts.get(g, empty), drv.plan(parts.get(g, empty),
                                                     mb, self.stats))
                 for g, drv in self._drivers.items()])
+        if obs is not None:
+            obs.host_phase("admit", "admit_s", self.stats, t_admit,
+                           time.perf_counter())
         mb.drain()
         for (t0, _kept), per in zip(panes, planned):
             for drv, pane_ev, pends in per:

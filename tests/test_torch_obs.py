@@ -9,11 +9,20 @@ the engine contracts of ``tests/test_obs.py``.
 * the trace exports as Chrome-trace JSONL with balanced spans, its phase
   spans sum to the ``RunStats`` timers, and ``jsonl_to_chrome`` round
   trips it;
-* ``collect()`` has the reference's keys, and takes any object with a
-  ``summary()`` for the layers the port does not have yet.
+* ``collect()`` has the reference's keys (with the port's step clocks),
+  and takes any object with a ``summary()`` for the layers the port does
+  not have yet;
+* the port's own step clocks and spans (``RunStats.STEP_FIELDS``): plan's
+  lie inside ``plan_s``, execute's and finalize's tile their phase, the
+  streaming layer's ingress and admission are phases of their own, the
+  collector's pauses are counted only while attached, a flush of K > 1
+  panes is one measured phase span, and ``Tracer.unix_ns`` places a span
+  on ``torch.profiler``'s clock.
 """
 
+import gc
 import json
+import time
 
 import pytest
 
@@ -23,7 +32,7 @@ from repro.core.optimizer import FlopPolicy as RefFlopPolicy
 from repro.obs import Observability as RefObservability
 from repro.streams import generator as RG
 from repro_torch import interop
-from repro_torch.core.engine import HamletRuntime, vals_equal
+from repro_torch.core.engine import HamletRuntime, RunStats, vals_equal
 from repro_torch.core.optimizer import DynamicPolicy, FlopPolicy
 from repro_torch.obs import (PHASES, NULL_SPAN, Observability,
                              SharingAuditLog, SharingDecision, Tracer,
@@ -218,8 +227,11 @@ def test_collect_keys_match_reference():
     want = ref_obs.collect(stats=ref_rt.stats, runtime=ref_rt)
     got = obs.collect(stats=rt.stats, runtime=rt)
     assert got.keys() == want.keys()
-    for k in ("engine", "executors", "plan_cache", "audit", "trace"):
+    for k in ("executors", "plan_cache", "audit", "trace"):
         assert got[k].keys() == want[k].keys(), k
+    # the port's step clocks are its own RunStats fields
+    assert got["engine"].keys() == \
+        want["engine"].keys() | set(RunStats.STEP_FIELDS)
     assert got["metrics"].keys() == want["metrics"].keys()
     assert got["plan_cache"] == want["plan_cache"]
     assert got["audit"] == want["audit"]
@@ -231,3 +243,231 @@ def test_collect_keys_match_reference():
     assert more["overload"] == {"shed": 1}
     assert more["eventtime"] == {"lag": 2}
     assert more["serving"] == {"sessions": 3}
+
+
+# ------------------------------------------------ step clocks and spans
+
+
+def _step_run(K, obs=None, policy=DynamicPolicy):
+    wl, stream, t_end = port_case("ridesharing")
+    obs = Observability() if obs is None else obs
+    rt = HamletRuntime(wl, policy=policy(), obs=obs, micro_batch=K, **DEV)
+    res = rt.run(stream, t_end)
+    rt.run(stream, t_end)        # warm: plan-cache hits and the scan path
+    return rt, obs, res
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_step_clocks_nest_in_their_phases(K):
+    """Every step field is >= 0; plan's three steps lie inside ``plan_s``;
+    execute's and finalize's three each tile their phase to within 5%."""
+    rt, obs, _ = _step_run(K)
+    s = rt.stats
+    for f in RunStats.STEP_FIELDS:
+        assert getattr(s, f) >= 0, f
+    assert 0 < s.plan_prologue_s + s.plan_decide_s + s.plan_build_s \
+        <= s.plan_s
+    for phase, steps in (("execute", ("stage", "launch", "wait")),
+                         ("finalize", ("prep", "rounds", "wait"))):
+        total = getattr(s, f"{phase}_s")
+        tiled = sum(getattr(s, f"{phase}_{st}_s") for st in steps)
+        assert abs(tiled - total) <= 0.05 * total, (phase, tiled, total)
+    # the torch backend hands the card's share to the device it was given
+    assert s.execute_h2d_bytes > 0 and s.execute_d2h_bytes > 0
+    assert obs.tracer.dropped == 0
+    steps = {e["name"] for e in obs.tracer.events() if e["cat"] == "step"}
+    assert {"plan.prologue", "plan.decide", "plan.build", "execute.stage",
+            "execute.launch", "execute.wait", "finalize.prep",
+            "finalize.rounds", "finalize.wait"} <= steps
+
+
+@pytest.mark.parametrize("policy", [DynamicPolicy, FlopPolicy])
+def test_plan_decide_clock_under_dynamic_policies(policy):
+    """The share/not-share decisions are timed: the dyn-fast fingerprint
+    pass under ``DynamicPolicy``, the per-burst walk under ``FlopPolicy``
+    (a clock only, no span)."""
+    rt, obs, _ = _step_run(1, policy=policy)
+    assert rt.stats.plan_decide_s > 0
+    decide = [e for e in obs.tracer.events() if e["name"] == "plan.decide"]
+    assert bool(decide) == (policy is DynamicPolicy)
+
+
+def test_step_clocks_only_when_attached():
+    rt, _, _ = _step_run(4, obs=Observability.disabled())
+    assert rt.stats.execute_launch_s > 0 and rt.stats.plan_build_s > 0
+    wl, stream, t_end = port_case("ridesharing")
+    bare = HamletRuntime(wl, micro_batch=4, **DEV)
+    bare.run(stream, t_end)
+    assert all(getattr(bare.stats, f) == 0 for f in RunStats.STEP_FIELDS)
+
+
+def test_gc_pauses_counted_while_attached():
+    """A forced full collection inside an attached run is counted (and
+    spanned); the hook goes on ``detach`` and with a freed facade."""
+    gc.collect()
+    n0 = len(gc.callbacks)
+    wl, stream, t_end = port_case("ridesharing")
+    obs = Observability()
+    rt = HamletRuntime(wl, obs=obs, **DEV)
+    assert len(gc.callbacks) == n0 + 1
+    rt.run(stream, t_end)
+    g0 = rt.stats.gc_collections
+    gc.collect()
+    assert rt.stats.gc_s > 0 and rt.stats.gc_collections > g0
+    assert any(e["name"] == "gc" and e["cat"] == "step"
+               for e in obs.tracer.events())
+    obs.detach()
+    assert len(gc.callbacks) == n0
+    n1 = rt.stats.gc_collections
+    gc.collect()
+    assert rt.stats.gc_collections == n1
+    # a facade that is freed takes its hook with it
+    HamletRuntime(wl, obs=Observability(), **DEV)
+    gc.collect()
+    assert len(gc.callbacks) == n0
+
+
+def test_trace_read_while_a_collector_hook_records():
+    """A collector hook may record a span at any allocation, also while
+    the trace is being read (the ``gc`` span of a full pass): reading
+    never fails for it."""
+    rt, obs, _ = _step_run(1)
+    n0 = len(obs.tracer)
+
+    def hook(phase, info):
+        if phase == "stop":
+            obs.tracer.complete("probe", time.perf_counter(), 0.0,
+                                cat="step")
+
+    old = gc.get_threshold()
+    gc.callbacks.append(hook)
+    try:
+        gc.set_threshold(1, 1, 1)
+        evs = obs.tracer.events()
+        totals = obs.phase_totals()
+    finally:
+        gc.set_threshold(*old)
+        gc.callbacks.remove(hook)
+    obs.detach()
+    assert len(evs) > n0 and totals["plan"] > 0
+    assert len(obs.tracer) > n0
+
+
+def test_flush_phase_spans_are_measured_at_k4():
+    """At K = 4 each flush has exactly one span a phase on the engine
+    track, listing its panes; no per-pane phase span is made up, and the
+    spans still sum to the RunStats timers."""
+    rt, obs, _ = _step_run(4)
+    evs = obs.tracer.events()
+    flushes = [e["args"]["flush"] for e in evs
+               if e["ph"] == "B" and e["name"] == "flush"]
+    for ph in ("plan", "execute", "finalize"):
+        spans = [e for e in evs if e["ph"] == "X" and e["cat"] == "phase"
+                 and e["name"] == ph]
+        assert sorted(e["args"]["flush"] for e in spans) == flushes, ph
+        assert all(e["tid"] == 0 and e["args"]["panes"] == 4
+                   and len(e["args"]["pane_keys"]) == 4 for e in spans)
+    totals = obs.phase_totals()
+    for ph in PHASES:
+        stat = getattr(rt.stats, f"{ph}_s")
+        assert abs(totals[ph] - stat) <= 0.05 * stat, ph
+    # every step span of a flush carries its id
+    assert all(e["args"]["flush"] in set(flushes) for e in evs
+               if e["cat"] == "step" and e["name"] != "gc")
+
+
+def _overload(K, obs):
+    from repro_torch.overload import OverloadConfig, OverloadRuntime
+
+    wl, stream, t_end = port_case("ridesharing")
+    cfg = OverloadConfig(shed_policy="none", micro_batch=K)
+    ort = OverloadRuntime(wl, cfg, obs=obs, **DEV)
+    return ort, ort.run(stream, t_end)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_overload_bitwise_and_its_host_phases(K):
+    """The streaming layer's results are bitwise the same with either
+    facade or none; with one, ``offer`` is the ``ingress`` phase and the
+    admission the ``admit`` phase, disjoint from the pipeline's."""
+    _, want = _overload(K, None)
+    _, got = _overload(K, Observability.disabled())
+    assert_bitwise(got, want, K)
+    obs = Observability()
+    ort, got = _overload(K, obs)
+    assert_bitwise(got, want, K)
+    st = ort.stats
+    assert st.ingress_s > 0 and st.admit_s > 0
+    spans = [e for e in obs.tracer.events()
+             if e["ph"] == "X" and e["cat"] == "phase"]
+    totals = obs.phase_totals()
+    assert abs(totals["ingress"] - st.ingress_s) <= 1e-9 + 1e-6 * st.ingress_s
+    assert abs(totals["admit"] - st.admit_s) <= 1e-9 + 1e-6 * st.admit_s
+    top = sorted((e["ts"], e["ts"] + e["dur"]) for e in spans
+                 if e["tid"] == 0)
+    assert all(b0 <= a1 + 1e-3 for (_, b0), (a1, _) in zip(top, top[1:]))
+
+
+def test_host_phase_from_many_threads_loses_nothing():
+    """A pipelined flush admits on its worker thread while the caller
+    admits the next pane: both add to ``admit_s``, and no update is lost."""
+    import sys
+    import threading
+
+    obs = Observability.disabled()
+    st = RunStats()
+    n_threads, n_calls = 16, 2000
+
+    def work():
+        for _ in range(n_calls):
+            obs.host_phase("admit", "admit_s", st, 0.0, 1.0)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert st.admit_s == n_threads * n_calls
+
+
+def test_clock_sync_and_epoch_export(tmp_path):
+    tr = Tracer()
+    t0 = time.perf_counter()
+    tr.complete("x", t0, 0.001)
+    evs = tr.events()
+    sync = evs[0]
+    assert sync["ph"] == "M" and sync["name"] == "clock_sync"
+    assert abs(tr.unix_ns(evs[1]["ts"]) - time.time_ns()) < 5e8
+    path = tmp_path / "t.jsonl"
+    assert tr.export_jsonl(path, epoch_ns=0) == 2
+    ep = [json.loads(ln) for ln in path.read_text().splitlines()]
+    assert ep[1]["ts"] == pytest.approx(tr.unix_ns(evs[1]["ts"]) / 1e3,
+                                        abs=1.0)
+    assert ep[0]["args"] == sync["args"]
+
+
+def test_unix_ns_maps_a_span_onto_the_profiler_clock():
+    """A ``record_function`` range opened inside a program span lies,
+    through ``Tracer.unix_ns``, inside that span on the CPU profiler's
+    clock."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    tr = Tracer()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        time.sleep(0.005)
+        with record_function("inside"):
+            time.sleep(0.005)
+        time.sleep(0.005)
+        tr.complete("outer", t0, time.perf_counter() - t0)
+    (ev,) = [e for e in tr.events() if e["name"] == "outer"]
+    lo, hi = tr.unix_ns(ev["ts"]), tr.unix_ns(ev["ts"] + ev["dur"])
+    (rf,) = [e for e in prof.profiler.kineto_results.events()
+             if e.name() == "inside"]
+    assert lo < rf.start_ns() < rf.start_ns() + rf.duration_ns() < hi
