@@ -309,6 +309,9 @@ class RunStats:
     snapshots_propagated: int = 0
     propagate_cells: int = 0      # total solved cells (rows x basis cols)
     decisions: int = 0
+    # decisions the policy evaluated fresh (a v1 memo miss, a v2 call);
+    # the rest replayed from its memo or the pane memo
+    decide_evals: int = 0
     panes: int = 0
     windows_emitted: int = 0
     # four-phase wall-clock split (seconds) — the engine times itself so

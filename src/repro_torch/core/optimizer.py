@@ -18,13 +18,21 @@ counts the actual dense-algebra FLOPs of this implementation.
 the burst events whose signature (match status / start status / edge-predicate
 row) differs from the reference query's — i.e. the events that would become
 event-level snapshots (Def. 9) if that query shares.
+
+``DynamicPolicy`` takes each v1 decision in bulk: one boolean pattern matrix
+gives every union count, and the classification, the cheapest-pair seed and
+each local-search sweep evaluate all their moves in one NumPy pass, taking
+the scalar algorithm's comparisons and recording the exact interval of the
+running event count on which the decision replays.  The v2 model stays on
+the scalar path: its ``log2`` terms are not integer arithmetic, so its
+decisions are neither taken in affine form nor memoized.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from collections import OrderedDict
-from fractions import Fraction
 
 import numpy as np
 
@@ -35,132 +43,273 @@ __all__ = ["DynamicPolicy", "AlwaysShare", "NeverShare", "FlopPolicy",
 
 
 # --------------------------------------------------------------------------
-# exact decision memoization over the running event count
+# v1 decisions in bulk, with their exact replay interval over n
 # --------------------------------------------------------------------------
 #
-# Every quantity the v1/v2 benefit models compute is *affine* in ``n`` (the
+# Every quantity the v1 benefit model computes is *affine* in ``n`` (the
 # running event count): ``shared = b*n*s_p + s_c*k*g*t`` and ``nonshared =
-# k*b*n`` never multiply ``n`` by itself.  The sharing decision is therefore
-# a deterministic function of the signs of finitely many affine comparisons,
-# i.e. piecewise-constant in ``n`` with exactly computable flip thresholds.
-# ``_Aff`` threads an affine number through the untouched cost code; every
-# comparison it takes records the exact integer interval of ``n`` on which
-# its outcome is stable, so one recorded decision replays bit-for-bit for
-# every ``n`` inside the interval — the warm-pane fast path is one dict hit
-# plus an interval check instead of the full classification + local search.
+# k*b*n`` never multiply ``n`` by itself.  Each cost is a pair of integers
+# (the coefficient of ``n``, the constant), and the sharing decision is a
+# deterministic function of the signs of finitely many comparisons ``da*n +
+# dc < 0`` (or ``<= 0``), i.e. piecewise-constant in ``n`` with exactly
+# computable flip thresholds.  The intersection of each comparison's
+# stability interval is the integer interval of ``n`` on which the decision
+# replays bit for bit, so the warm-pane fast path is one dict hit plus an
+# interval check instead of the full classification + local search.
+#
+# ``_decide_v1`` takes one decision in bulk: every union count comes from a
+# boolean pattern matrix (coverage patterns x candidates) and its weights,
+# and the classification, the cheapest-pair seed and each local-search sweep
+# evaluate all their candidate moves in one NumPy pass.  It takes the
+# comparisons the scalar algorithm (``_decide_impl`` and ``_refine``, as the
+# reference package evaluates them over affine costs) takes: the same
+# float expression for the local search's ``best - 1e-12``,
+# ``<`` minima in first-occurrence order, ``<=`` in the classification and
+# the benefit sign, and only the comparisons the scalar loops evaluate
+# constrain the interval.
+
+# exact int64 room for ``da*n`` and float64 room for the constants ``dc``
+_INT64_ROOM = 1 << 62
+_FLOAT_ROOM = 1 << 52
 
 
-class _IntervalRecorder:
-    """Integer interval of ``n`` on which every recorded comparison keeps
-    the outcome it had at ``n0`` (inclusive bounds; ±inf = unbounded)."""
+def _stable_interval(lo, hi, parts: list) -> tuple:
+    """Intersect ``[lo, hi]`` with the integer interval of ``n`` on which
+    every comparison ``da*n + dc < 0`` of ``parts`` (batches of ``(da, dc,
+    outcome at n0)``) keeps its outcome, each at its exact rational
+    threshold ``r = -dc/da`` (``dc`` may be a float: the local search
+    compares against ``best - 1e-12``).  One with ``da == 0`` bounds
+    nothing."""
+    if not parts:
+        return lo, hi
+    da, dc, out = (np.concatenate(x) for x in zip(*parts))
+    keep = da != 0
+    da, dc, out = da[keep].astype(np.int64), dc[keep], out[keep]
+    pos = da > 0
+    # T, the first integer above r: ceil(r) when da > 0 (the comparison
+    # is false from there on), floor(r) + 1 when da < 0 (true from there
+    # on).  With F = floor(dc / |da|) = floor(dc) // |da|, exact for a
+    # float dc, they are -F and F + 1
+    F = np.floor(dc).astype(np.int64) // np.abs(da)
+    T = np.where(pos, -F, F + 1)
+    # an outcome of the side below r (true when da > 0, false when da < 0)
+    # holds up to T - 1, one of the side above from T on
+    hiside = pos == out
+    his, los = T[hiside], T[~hiside]
+    if his.size:
+        hi = min(hi, int(his.min()) - 1)
+    if los.size:
+        lo = max(lo, int(los.max()))
+    return lo, hi
 
-    __slots__ = ("n0", "lo", "hi")
 
-    def __init__(self, n0: int):
-        self.n0 = n0
-        self.lo = -math.inf
-        self.hi = math.inf
+@functools.lru_cache(maxsize=64)
+def _lower_mask(m: int) -> np.ndarray:
+    """Added to an m x m int64 matrix, hides all but the pairs (i, j > i)
+    from ``argmin``."""
+    out = np.tril(np.full((m, m), np.iinfo(np.int64).max // 2))
+    out.setflags(write=False)
+    return out
 
-    def constrain(self, da, dc, strict: bool, outcome: bool) -> None:
-        # predicate: da*n + dc < 0 (strict) / <= 0; held `outcome` at n0
-        r = (Fraction(-dc, da) if isinstance(da, int) and isinstance(dc, int)
-             else Fraction(-dc) / Fraction(da))
-        if outcome == strict:
-            # n strictly below/above the threshold
-            if (da > 0) == outcome:
-                self.hi = min(self.hi, math.ceil(r) - 1)
+
+def _decide_v1(patterns, candidates, b: int, n0: int, t: int,
+               local_search: bool):
+    """The v1 sharing decision for one burst at ``n = n0``, in bulk.
+
+    Returns ``(groups, (lo, hi), benefit, benefit_value, split)``:
+    ``benefit`` is the final shared set's ``(a, c)`` (``None`` when fewer
+    than two queries share) and ``benefit_value`` its value at ``n0``, of
+    the type the scalar path gives (an int below ``b``, else a float).
+    Comparisons ``da*n + dc <= 0`` between integers are recorded as
+    ``da*n + dc - 1 < 0``: the same integers ``n`` satisfy both."""
+    m = len(candidates)
+    # n = max(n, b): below b every cost is a constant (n is b), so only
+    # this comparison bounds the decision
+    record = n0 >= b
+    lo, hi = (b, math.inf) if record else (-math.inf, b - 1)
+    n = n0 if record else b
+    rec: list | None = [] if record else None
+    if patterns:
+        codes, counts = zip(*patterns)
+        nb = (m + 7) // 8
+        raw = np.frombuffer(b"".join(c.to_bytes(nb, "little") for c in codes),
+                            np.uint8).reshape(len(codes), nb)
+        P = np.unpackbits(raw, axis=1, count=m, bitorder="little") != 0
+        w = np.array(counts, np.int64)
+    else:
+        P = np.zeros((0, m), bool)
+        w = np.zeros(0, np.int64)
+    U = int(w.sum())
+    bt = b * t
+    if (2 * b * (m + 2 + U) * abs(n) >= _INT64_ROOM
+            or 2 * (1 + U) * max(m, 1) * bt >= _FLOAT_ROOM):
+        raise OverflowError(
+            f"v1 costs at n={n0}, b={b}, {m} candidates pass int64")
+    cover = P.sum(1)                  # candidates each pattern covers
+    u1 = w @ P                        # u({q})
+
+    # Thm 4.1: queries that introduce no snapshot share for free; Thm 4.2:
+    # q shares iff Shared(Q) <= Shared(Q \ {q}) + NonShared(q), where
+    # u(Q \ {q}) = uQ - x, x the weight of the patterns only q covers
+    snap = u1 > 0
+    uQ = int(w @ (cover > 0))
+    x = w @ (P & (cover == 1)[:, None])
+    da = b * (x - 1)
+    dc = bt * (m - 1) * x + bt * (1 + uQ)
+    keep = da * n + dc <= 0
+    if record:
+        rec.append((np.where(snap, da, 0), dc - 1, keep))
+    shared = keep | ~snap
+
+    if local_search:
+        S = _refine_bulk(P, w, u1, shared, m, b, bt, n, rec)
+        members = sorted(candidates[i] for i in np.flatnonzero(S))
+    else:
+        S = shared
+        members = [candidates[i] for i in np.concatenate(
+            [np.flatnonzero(~snap), np.flatnonzero(snap & keep)])]
+    k = len(members)
+    if k < 2:
+        return ([[q] for q in candidates], _stable_interval(lo, hi, rec),
+                None, None, False)
+    u = int(w[(P & S).any(1)].sum())
+    ben = (k * b - b * (1 + u), -((1 + u) * k * bt))
+    value = ben[0] * n + ben[1]
+    split = value <= 0
+    if record:
+        rec.append(([ben[0]], [ben[1] - 1], [split]))
+        benefit, value = ben, float(value)
+    else:
+        benefit = (0, value)
+    if split:
+        groups = [[q] for q in candidates]
+    else:
+        groups = [members] + [[q] for q in candidates if q not in members]
+    return groups, _stable_interval(lo, hi, rec), benefit, value, split
+
+
+def _cost(k: int, u: int, m: int, b: int, bt: int) -> tuple:
+    """``(a, c)`` of the plan that shares k of the m queries, whose union
+    count is u, on one graphlet and runs the others (and a lone one)
+    alone: ``shared_cost_v1`` with s_p = s_c = 1 + u and g = b, plus
+    ``nonshared_cost_v1``."""
+    if k < 2:
+        return m * b, 0
+    return (m - k) * b + b * (1 + u), (1 + u) * k * bt
+
+
+def _refine_bulk(P, w, u1, shared, m, b, bt, n, rec):
+    """Multi-start single-move local search over shared-set membership
+    (``DynamicPolicy._refine`` in bulk); returns the chosen set as a mask.
+    ``rec`` collects the comparisons the scalar loops take (``None``: n is
+    a constant)."""
+    starts = [shared.copy(), np.ones(m, bool)]
+    empty = ~P.any(0)                     # queries that cover no pattern
+    if m >= 2:
+        # cheapest pair as a growth seed (single moves cannot leave |S| < 2):
+        # the first minimum in (i, j > i) order, as ``min`` takes it.  A
+        # pair's cost rises with its union count u alone, (b*n + 2*bt)*u
+        # plus a constant, so the minimum is the union's, and the
+        # comparisons ``min`` takes flip only at n = -2t: they bound no
+        # n >= b, the only n whose comparisons are recorded
+        U2 = u1[:, None] + u1 - (P.T * w) @ P
+        j = int(np.argmin(U2 + _lower_mask(m)))
+        pair = np.zeros(m, bool)
+        pair[[j // m, j % m]] = True
+        starts.append(pair)
+    best = None
+    seen = set()
+    for s0 in starts:
+        # a start equal to an earlier one descends the same way to the
+        # same cost, which is not below it: its comparisons are recorded
+        if s0.tobytes() in seen:
+            continue
+        seen.add(s0.tobytes())
+        S, c = _descend_bulk(P, w, empty, s0, m, b, bt, n, rec)
+        if best is not None:
+            # c < best_c, the scalar path's comparison of the descents
+            da, dc = c[0] - best[1][0], c[1] - best[1][1]
+            took = da * n + dc < 0
+            if rec is not None:
+                rec.append(([da], [dc], [took]))
+        if best is None or took:
+            best = (S, c)
+    return best[0]
+
+
+def _descend_bulk(P, w, empty, S, m, b, bt, n, rec):
+    """Single-flip descent from ``S``, as ``DynamicPolicy._refine``'s
+    ``descend``: a sweep visits every ``q`` in order and takes the flip
+    ``S ^ {q}`` when its cost is below ``best - 1e-12``; a sweep that took
+    a flip is followed by another.
+
+    Each step evaluates the flips from the sweep position on at once.  A
+    flip of a query that covers no pattern moves k alone, and its gain
+    ``s*(bt*(1 + u) - b*n)`` does not depend on k, so a step assumes those
+    outcomes, places every later query at the k the flips before it leave,
+    and runs up to the first query whose outcome is not the assumed one (a
+    taken flip that moves the union, or an edge of ``cost``)."""
+    cnt = (P & S).sum(1)                  # members of S covering each pattern
+    k, u = int(S.sum()), int(w[cnt > 0].sum())
+    sgn = 1 - 2 * S.astype(np.int64)      # +1: q joins S, -1: q leaves
+    improved = True
+    while improved:
+        improved = False
+        p = 0
+        while p < m:
+            Sp, sg = S[p:], sgn[p:]
+            # a pattern no member covers counts once q joins; one that only
+            # q covers stops counting once q leaves
+            du = sg * (w @ (P[:, p:] & (cnt[:, None] == Sp)))
+            gain = bt * (1 + u) - b * n           # a pattern-free join's
+            assumed = empty[p:] & (~Sp if gain < 0 else Sp if gain > 0
+                                   else False)
+            runs = bool(assumed.any())
+            if runs:
+                steps = np.where(assumed, sg, 0)
+                kq = k + np.cumsum(steps) - steps     # k when q is visited
+                kmin = min(k, int(kq[-1]))       # kq is monotone
             else:
-                self.lo = max(self.lo, math.floor(r) + 1)
-        else:
-            if (da > 0) == outcome:
-                self.hi = min(self.hi, math.floor(r))
+                kq = kmin = k
+            k2 = kq + sg
+            if kmin >= 2:
+                da = b * (du - sg)
+                c = kq * float((1 + u) * bt)
+                c2 = (du + (1 + u)) * k2 * bt
             else:
-                self.lo = max(self.lo, math.ceil(r))
-
-
-class _Aff:
-    """``a*n + c`` evaluated at the recorder's ``n0``; comparisons record
-    their exact stability interval.  Products of two n-dependent values are
-    rejected — the cost models are affine by construction."""
-
-    __slots__ = ("rec", "a", "c")
-
-    def __init__(self, rec, a, c):
-        self.rec = rec
-        self.a = a
-        self.c = c
-
-    def _coerce(self, o):
-        if isinstance(o, _Aff):
-            return o
-        if isinstance(o, (int, float)):
-            return _Aff(self.rec, 0, o)
-        return None
-
-    def __float__(self):
-        return float(self.a * self.rec.n0 + self.c)
-
-    def __add__(self, o):
-        o = self._coerce(o)
-        if o is None:
-            return NotImplemented
-        return _Aff(self.rec, self.a + o.a, self.c + o.c)
-
-    __radd__ = __add__
-
-    def __sub__(self, o):
-        o = self._coerce(o)
-        if o is None:
-            return NotImplemented
-        return _Aff(self.rec, self.a - o.a, self.c - o.c)
-
-    def __rsub__(self, o):
-        o = self._coerce(o)
-        if o is None:
-            return NotImplemented
-        return _Aff(self.rec, o.a - self.a, o.c - self.c)
-
-    def __neg__(self):
-        return _Aff(self.rec, -self.a, -self.c)
-
-    def __mul__(self, o):
-        if isinstance(o, _Aff):
-            if o.a == 0:
-                o = o.c
-            elif self.a == 0:
-                return _Aff(self.rec, o.a * self.c, o.c * self.c)
-            else:
-                raise TypeError("product of two n-dependent costs")
-        if not isinstance(o, (int, float)):
-            return NotImplemented
-        return _Aff(self.rec, self.a * o, self.c * o)
-
-    __rmul__ = __mul__
-
-    def _cmp(self, other, strict: bool, flip: bool):
-        o = self._coerce(other)
-        if o is None:
-            return NotImplemented
-        da, dc = self.a - o.a, self.c - o.c
-        if flip:
-            da, dc = -da, -dc
-        out = ((da * self.rec.n0 + dc < 0) if strict
-               else (da * self.rec.n0 + dc <= 0))
-        if da != 0 and math.isfinite(dc):
-            self.rec.constrain(da, dc, strict, out)
-        return out
-
-    def __lt__(self, o):
-        return self._cmp(o, True, False)
-
-    def __le__(self, o):
-        return self._cmp(o, False, False)
-
-    def __gt__(self, o):
-        return self._cmp(o, True, True)
-
-    def __ge__(self, o):
-        return self._cmp(o, False, True)
+                many, many2 = kq >= 2, k2 >= 2
+                u2 = u + du
+                da = (np.where(many2, (m - k2) * b + b * (1 + u2), m * b)
+                      - np.where(many, (m - kq) * b + b * (1 + u), m * b))
+                c = np.where(many, (1 + u) * kq * bt, 0).astype(np.float64)
+                c2 = np.where(many2, (1 + u2) * k2 * bt, 0)
+            # c2 < best - 1e-12 as the scalar path takes it: ``da*n + dc``
+            # with the float ``dc = c2 - (best_c - 1e-12)``; a flip to
+            # |S| = 1 is not compared
+            dc = c2 - (c - 1e-12)
+            took = da * n + dc < 0
+            if kmin <= 2:
+                seen = k2 != 1
+                da = np.where(seen, da, 0)
+                took &= seen
+            off = took != assumed if runs else took
+            j = int(off.argmax())
+            end = j + 1 if off[j] else len(off)
+            if rec is not None:
+                rec.append((da[:end], dc[:end], took[:end]))
+            flips = took[:end]
+            if flips.any() if runs else off[j]:
+                improved = True
+                S[p:p + end] ^= flips
+                sgn[p:p + end] = np.where(flips, -sg[:end], sg[:end])
+                last = p + end - 1
+                kj = kq[end - 1] if runs else kq
+                k = int(kj - sgn[last] if flips[-1] else kj)
+                if flips[-1] and not empty[last]:
+                    cnt = (P & S).sum(1)
+                    u += int(du[end - 1])
+            p += end
+    return S, _cost(k, u, m, b, bt)
 
 
 _MEMO_CAP = 4096
@@ -260,7 +409,8 @@ class DynamicPolicy(_PolicyBase):
     With *partially overlapping* per-query divergence sets that assumption
     breaks (choosing the shared subset becomes set-cover-like), so we refine
     the classification with a single-move local search (beyond-paper; still
-    O(m^2) plan evaluations per burst, m = snapshot-introducing queries)."""
+    O(m^2) plan evaluations per burst, m = snapshot-introducing queries).
+    ``model="v2"`` takes the Def. 12 costs on the scalar path."""
 
     pattern_based = True
 
@@ -269,15 +419,8 @@ class DynamicPolicy(_PolicyBase):
         self.local_search = local_search
         # (patterns, candidates, b, t) -> [(n_lo, n_hi, groups, benefit,
         # split)]: exact decision replay intervals over the running event
-        # count (see the _Aff instrumentation above)
+        # count (see ``_decide_v1``)
         self._memo: "OrderedDict[tuple, list]" = OrderedDict()
-
-    def _costs(self, *, s_new: int, b: int, n: int, k: int, g: int, t: int):
-        s_c = 1 + s_new          # graphlet snapshot x + event-level snapshots
-        s_p = 1 + s_new
-        if self.model == "v1":
-            return B.benefit_v1(b=b, n=n, s_p=s_p, s_c=s_c, k=k, g=g, t=t)
-        return B.benefit_v2(b=b, n=n, s_p=s_p, s_c=s_c, k=k, g=g, p=max(1, t // 2))
 
     def decide(self, *, ctx, el, candidates, d_rows, b, n, stats):
         return self.decide_patterns(
@@ -292,18 +435,25 @@ class DynamicPolicy(_PolicyBase):
         the engine's plan-key fast path calls it straight off a vectorized
         per-burst fingerprint (see ``engine._dyn_fast_groups``).
 
-        Decisions are memoized per (patterns, candidates, b, t) with the
-        exact interval of the running event count ``n`` on which the
-        recorded decision trajectory is stable (all cost comparisons keep
-        their sign — see ``_Aff``), so a warm stream replays each decision
-        from one dict hit while benefit flips at the recorded thresholds
-        still recompute and land in fresh intervals.
+        The v1 model evaluates each decision in bulk (``_decide_v1``: one
+        pattern matrix, every candidate move of the classification, the
+        pair seed and each local-search sweep in one NumPy pass) and
+        memoizes it per (patterns, candidates, b, t) with the exact
+        interval of the running event count ``n`` on which it is stable
+        (every cost comparison keeps its sign), so a warm stream replays
+        each decision from one dict hit while benefit flips at the recorded
+        thresholds still recompute and land in fresh intervals.  The
+        decisions, intervals and benefits are those of the scalar algorithm
+        over affine costs.
 
-        Only the v1 model memoizes: its costs are pure integer arithmetic,
-        so the affine replay is bit-for-bit.  v2's ``log2`` terms make the
-        instrumented arithmetic round differently near decision boundaries
-        — it takes the plain path."""
+        Only the v1 model takes that path: its costs are pure integer
+        arithmetic, so the affine replay is bit-for-bit.  v2's ``log2``
+        terms would round differently in affine form near decision
+        boundaries — it takes the plain scalar path, unmemoized.  Every
+        fresh evaluation (a v1 memo miss, any v2 call) counts in
+        ``stats.decide_evals``."""
         if self.model != "v1":
+            stats.decide_evals += 1
             self.last_interval = None
             return self._decide_impl(patterns=patterns,
                                      candidates=candidates, b=b, n=n, t=t,
@@ -326,24 +476,27 @@ class DynamicPolicy(_PolicyBase):
                                          else float(benefit[0] * n
                                                     + benefit[1]))
                     return [list(g) for g in groups]
-        rec = _IntervalRecorder(n)
-        split0 = stats.split_bursts
-        out = self._decide_impl(patterns=patterns, candidates=candidates,
-                                b=b, n=_Aff(rec, 1, 0), t=t, stats=stats)
-        lb = self.last_benefit
-        if isinstance(lb, _Aff):
-            benefit = (lb.a, lb.c)
-            self.last_benefit = float(lb)
-        else:
-            benefit = None if lb is None else (0, lb)
+        stats.decide_evals += 1
+        stats.decisions += 1
+        out, (lo, hi), benefit, self.last_benefit, split = _decide_v1(
+            patterns, candidates, b, n, t, self.local_search)
+        if split:
+            stats.split_bursts += 1
+        self.last_patterns = patterns
         if ent is None:
             ent = self._memo[key] = []
             while len(self._memo) > _MEMO_CAP:
                 self._memo.popitem(last=False)
-        ent.append((rec.lo, rec.hi, tuple(map(tuple, out)),
-                    benefit, stats.split_bursts > split0))
-        self.last_interval = (rec.lo, rec.hi)
+        ent.append((lo, hi, tuple(map(tuple, out)), benefit, split))
+        self.last_interval = (lo, hi)
         return out
+
+    # -- the v2 model's scalar path (v1 decides in ``_decide_v1``) --
+
+    def _costs(self, *, s_new: int, b: int, n: int, k: int, g: int, t: int):
+        s_c = 1 + s_new          # graphlet snapshot x + event-level snapshots
+        s_p = 1 + s_new
+        return B.benefit_v2(b=b, n=n, s_p=s_p, s_c=s_c, k=k, g=g, p=max(1, t // 2))
 
     def _decide_impl(self, *, patterns, candidates, b, n, t, stats):
         stats.decisions += 1
