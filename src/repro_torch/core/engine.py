@@ -312,6 +312,12 @@ class RunStats:
     # decisions the policy evaluated fresh (a v1 memo miss, a v2 call);
     # the rest replayed from its memo or the pane memo
     decide_evals: int = 0
+    # event-level snapshots (Def. 9): sum of b^2 over the per-query edge
+    # masks the per-burst walk built; rows of shared Kleene graphlets, and
+    # those of them that carry an event-level snapshot (divergent rows)
+    edge_mask_cells: int = 0
+    shared_rows: int = 0
+    snapshot_rows: int = 0
     panes: int = 0
     windows_emitted: int = 0
     # four-phase wall-clock split (seconds) — the engine times itself so
@@ -327,6 +333,7 @@ class RunStats:
     # an Observability is attached (see STEP_FIELDS)
     plan_prologue_s: float = 0.0
     plan_decide_s: float = 0.0
+    plan_edge_s: float = 0.0
     plan_build_s: float = 0.0
     execute_stage_s: float = 0.0
     execute_launch_s: float = 0.0
@@ -354,18 +361,19 @@ class RunStats:
         "events", "bursts", "decisions", "panes", "windows_emitted")
 
     # The step clocks, read only with an Observability attached (all stay
-    # 0 without one).  Plan's three lie inside ``plan_s``; what they leave
-    # of it is signature assembly and the plan-cache lookup.  Execute's
-    # three tile ``execute_s`` (the submits' injection rows and the
-    # executor's bucketing and stacking; the ``ops.propagate*`` calls with
-    # their host-to-device copies; the fetch and unpacking), as
-    # finalize's tile ``finalize_s`` with the fold executor (flush plan and
-    # ``S``; the scan launch or host rounds; the fetch and scatter), but
-    # not its sequential replay.  ``ingress_s`` / ``admit_s`` are the
+    # 0 without one).  Plan's four lie inside ``plan_s`` (``plan_edge_s``:
+    # the per-burst walk's edge masks and their packed signature bits);
+    # what they leave of it is signature assembly and the plan-cache
+    # lookup.  Execute's three tile ``execute_s`` (the submits' injection
+    # rows and the executor's bucketing and stacking; the
+    # ``ops.propagate*`` calls with their host-to-device copies; the fetch
+    # and unpacking), as finalize's tile ``finalize_s`` with the fold
+    # executor (flush plan and ``S``; the scan launch or host rounds; the
+    # fetch and scatter), but not its sequential replay.  ``ingress_s`` / ``admit_s`` are the
     # streaming layer's ``offer`` and admission, outside the four phases;
     # ``gc_s`` / ``gc_collections`` the collector's pauses of the process.
     STEP_FIELDS: ClassVar[tuple[str, ...]] = (
-        "plan_prologue_s", "plan_decide_s", "plan_build_s",
+        "plan_prologue_s", "plan_decide_s", "plan_edge_s", "plan_build_s",
         "execute_stage_s", "execute_launch_s", "execute_wait_s",
         "execute_h2d_bytes", "execute_d2h_bytes",
         "finalize_prep_s", "finalize_rounds_s", "finalize_wait_s",
@@ -967,10 +975,16 @@ class PaneProcessor:
                 attrs = ev.attrs[sl]
                 mvec = mv_type[tid][:, c:c + b]
                 if ctx.edge_pred_els[el]:
+                    t_e = perf_counter() if obs is not None else 0.0
                     epm = [ctx.edge_mask(qi, tid, attrs) for qi in q_pos]
                     epm_sig = tuple(
                         None if m is None else np.packbits(m).tobytes()
                         for m in epm)
+                    stats.edge_mask_cells += b * b * sum(m is not None
+                                                         for m in epm)
+                    if obs is not None:
+                        obs.step("plan.edge", "plan_edge_s", t_e,
+                                 perf_counter(), stats)
                 else:
                     epm = [None] * nq
                     epm_sig = None
@@ -1414,6 +1428,8 @@ class PaneProcessor:
             # non-shared path keeps plain per-query aggregates
             stats.snapshots_created += nu + n_z
             stats.snapshots_propagated += B_local
+            stats.shared_rows += b
+            stats.snapshot_rows += d
 
         # dense fast path: no edge predicates and no divergent/dead rows
         # means the in-burst adjacency is exactly strictly-lower all-ones,

@@ -46,7 +46,7 @@ __all__ = ["PanePlan", "PanePlanCache", "PLAN_STAT_FIELDS"]
 # identically whether or not the cache is enabled.
 PLAN_STAT_FIELDS = ("graphlets", "shared_bursts", "shared_graphlets",
                     "split_bursts", "snapshots_created",
-                    "snapshots_propagated")
+                    "snapshots_propagated", "shared_rows", "snapshot_rows")
 
 
 @dataclass

@@ -291,7 +291,7 @@ class Workload:
         for q in self.atomic:
             for t in q.info.types | {n.neg_type for n in q.info.negatives}:
                 self.schema.type_id(t)  # raises on unknown
-            for _, ps in q.preds:
+            for _, ps in q.preds + q.edge_preds:
                 for p in ps:
                     self.schema.attr_col(p.attr)
 

@@ -229,10 +229,12 @@ def test_collect_keys_match_reference():
     assert got.keys() == want.keys()
     for k in ("executors", "plan_cache", "audit", "trace"):
         assert got[k].keys() == want[k].keys(), k
-    # the port's step clocks and its count of fresh sharing decisions are
-    # its own RunStats fields
+    # the port's step clocks, its count of fresh sharing decisions and its
+    # event-level snapshot counters are its own RunStats fields
     assert got["engine"].keys() == \
-        want["engine"].keys() | set(RunStats.STEP_FIELDS) | {"decide_evals"}
+        want["engine"].keys() | set(RunStats.STEP_FIELDS) | {
+            "decide_evals", "edge_mask_cells", "shared_rows",
+            "snapshot_rows"}
     assert got["metrics"].keys() == want["metrics"].keys()
     assert got["plan_cache"] == want["plan_cache"]
     assert got["audit"] == want["audit"]
