@@ -132,6 +132,7 @@ from ..obs.trace import NULL_SPAN
 from .batch_exec import PaneBatchExecutor, PropagateJob
 from .events import EventBatch, StreamSchema, pane_size_for, split_panes
 from .fold_exec import FoldExecutor
+from .gc_hold import collector_held
 from .plan_cache import PanePlan, PanePlanCache
 from .query import AtomicQuery, Workload
 from .template import QueryTemplate, build_template
@@ -347,6 +348,10 @@ class RunStats:
     admit_s: float = 0.0
     gc_s: float = 0.0
     gc_collections: int = 0
+    gc_full_collections: int = 0
+    # flushes drained while ``gc_hold.collector_held`` had the collector
+    # off (counted always)
+    gc_held_flushes: int = 0
 
     # Fields whose totals are invariant under group-disjoint sharding of the
     # stream: a fleet of runtimes processing a partition of the groups
@@ -371,13 +376,15 @@ class RunStats:
     # executor (flush plan and ``S``; the scan launch or host rounds; the
     # fetch and scatter), but not its sequential replay.  ``ingress_s`` / ``admit_s`` are the
     # streaming layer's ``offer`` and admission, outside the four phases;
-    # ``gc_s`` / ``gc_collections`` the collector's pauses of the process.
+    # ``gc_s`` / ``gc_collections`` the collector's pauses of the process,
+    # ``gc_full_collections`` those of its full (generation-2) passes.
     STEP_FIELDS: ClassVar[tuple[str, ...]] = (
         "plan_prologue_s", "plan_decide_s", "plan_edge_s", "plan_build_s",
         "execute_stage_s", "execute_launch_s", "execute_wait_s",
         "execute_h2d_bytes", "execute_d2h_bytes",
         "finalize_prep_s", "finalize_rounds_s", "finalize_wait_s",
-        "ingress_s", "admit_s", "gc_s", "gc_collections")
+        "ingress_s", "admit_s", "gc_s", "gc_collections",
+        "gc_full_collections")
 
     def merge(self, o: "RunStats") -> None:
         for f in self.__dataclass_fields__:
@@ -1789,9 +1796,21 @@ class PaneMicroBatcher:
             self.obs.flush_phase(phase, t0, t1, len(pend))
 
     def drain(self) -> list[_PendingPane]:
+        """Flush the pending panes with the cyclic collector held off
+        (:func:`~repro_torch.core.gc_hold.collector_held`): what the flush
+        allocates dies with it, by reference counting, without being
+        promoted toward a full collection."""
         pend, self._pending = self._pending, []
         if not pend:
             return pend
+        with collector_held() as held:
+            if held:
+                for s in {id(p.stats): p.stats for p in pend}.values():
+                    s.gc_held_flushes += 1
+            self._flush(pend)
+        return pend
+
+    def _flush(self, pend: list[_PendingPane]) -> None:
         obs = self.obs
         args = (obs.flush_begin([p.stats for p in pend],
                                 [p.pane_key for p in pend])
@@ -1825,7 +1844,6 @@ class PaneMicroBatcher:
                     self._phase(pend, "finalize", t1, perf_counter())
         if obs is not None:
             obs.flush_end()
-        return pend
 
 
 # --------------------------------------------------------------------------

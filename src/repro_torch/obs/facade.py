@@ -200,7 +200,8 @@ class Observability:
 
     def attach(self, runtime) -> None:
         """Count the collector's pauses into ``runtime.stats`` (``gc_s``,
-        ``gc_collections``; a full pass also as a ``gc`` step span) until
+        ``gc_collections``; a full pass also into ``gc_full_collections``
+        and as a ``gc`` step span) until
         :meth:`detach`, or until this facade is freed.  The collector
         pauses the whole process, whatever it was doing: every attached
         facade counts each pause, and a runtime attached later takes over
@@ -237,8 +238,10 @@ class Observability:
         st = rt.stats
         st.gc_s += dt
         st.gc_collections += 1
-        if info.get("generation") == 2 and self.tracer.enabled:
-            self.tracer.complete("gc", t0, dt, cat="step")
+        if info.get("generation") == 2:
+            st.gc_full_collections += 1
+            if self.tracer.enabled:
+                self.tracer.complete("gc", t0, dt, cat="step")
 
     def lifecycle(self, stage, key=None, args=None) -> None:
         if self.tracer.enabled:

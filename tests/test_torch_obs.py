@@ -229,12 +229,13 @@ def test_collect_keys_match_reference():
     assert got.keys() == want.keys()
     for k in ("executors", "plan_cache", "audit", "trace"):
         assert got[k].keys() == want[k].keys(), k
-    # the port's step clocks, its count of fresh sharing decisions and its
-    # event-level snapshot counters are its own RunStats fields
+    # the port's step clocks, its count of fresh sharing decisions, its
+    # event-level snapshot counters and its count of flushes drained with
+    # the collector held off are its own RunStats fields
     assert got["engine"].keys() == \
         want["engine"].keys() | set(RunStats.STEP_FIELDS) | {
             "decide_evals", "edge_mask_cells", "shared_rows",
-            "snapshot_rows"}
+            "snapshot_rows", "gc_held_flushes"}
     assert got["metrics"].keys() == want["metrics"].keys()
     assert got["plan_cache"] == want["plan_cache"]
     assert got["audit"] == want["audit"]
