@@ -23,7 +23,7 @@ Phases, in order; a failure in any of them exits non-zero:
               version, host launches included (it is a loop of small torch
               ops);
 4. main     — the main path, ``HamletRuntime(..., backend="cuda",
-              micro_batch=16, plan_cache=True, fold_exec=True).run(...)``, on
+              micro_batch=16, fold_exec=True).run(...)``, on
               the ``overload_64plus_pred_full`` configuration (163,041 events),
               held against the port's numpy oracle (``backend="np"``), with
               every kernel's launch count from that run; then the same
@@ -606,7 +606,7 @@ def hold(np, got: dict, want: dict, rtol_of, what: str,
 
 def _run(torch, HamletRuntime, wl, stream, policy, backend):
     rt = HamletRuntime(wl, policy=policy(), backend=backend, micro_batch=16,
-                       plan_cache=True, fold_exec=True)
+                       fold_exec=True)
     t0 = time.perf_counter()
     res = rt.run(stream)
     if backend != "np":
@@ -1262,7 +1262,7 @@ def phase_obs(torch, np) -> dict:
     want, _, _ = _run(torch, HamletRuntime, wl, stream, policy, "cuda")
     obs = Observability()
     rt = HamletRuntime(wl, policy=policy(), backend="cuda", micro_batch=16,
-                       plan_cache=True, fold_exec=True, obs=obs)
+                       fold_exec=True, obs=obs)
     got, wall = _timed(torch, lambda: rt.run(stream))
     if got.keys() != want.keys() or not all(vals_equal(got[k], want[k])
                                             for k in want):
@@ -1284,7 +1284,7 @@ def phase_obs(torch, np) -> dict:
     if audit["decisions"] == 0:
         fail("obs: the audit log recorded no decision")
     view = obs.collect(stats=rt.stats, runtime=rt)
-    log(f"[obs] collect(): {sorted(view)}; plan cache {view['plan_cache']}")
+    log(f"[obs] collect(): {sorted(view)}")
 
     path = ROOT / "build" / "chip_smoke_trace.jsonl"
     path.parent.mkdir(exist_ok=True)

@@ -21,28 +21,17 @@ Four-phase pipeline (plan → execute → finalize → fold)
 A pane is processed in three engine phases plus the runtime's window fold:
 
 1. **plan** — the *prologue* runs batched across all K panes of a
-   micro-batch flush (:meth:`PaneProcessor.plan_prologues`): one
-   concatenated relevance filter, one run-length segmentation (memoized on
-   the flush's type sequence — the same structural recurrence the plan
-   cache banks on), and one stacked per-(query, type) predicate pass over
-   every event of each type across the whole flush, sliced back per pane;
-   the packed signature bytes the cache probe consumes are assembled in
-   the same pass.  The order-sensitive *finish* then walks panes in
-   submission order: the sharing policy decides each burst's groups (a
-   whole-pane decision memo keyed on the divergence image replays
-   decisions while the running event count stays inside the policy's
-   replay-stable interval), and each group's masks/adjacency/injection
-   rows are captured as propagation *jobs*.  Nothing here depends on the
-   running aggregates, so the whole pane plans up front.  The structural
-   output of this phase is memoized in a
-   :class:`~repro_torch.core.plan_cache.PanePlanCache`: the cache key is the
-   pane signature — type run-length encoding, packed per-burst predicate /
-   edge-mask bits, negation hits, and the optimizer's decided groups — so a
-   repeated pane shape skips group construction, adjacency/injection-row
-   building and the snapshot column layout entirely and only swaps in fresh
-   attribute data (or reuses the cached step list zero-copy).  The sharing
-   decision is recomputed every pane and lives in the *key*, so plan reuse
-   never freezes the share/no-share choice.
+   micro-batch flush (:meth:`PaneProcessor.plan_prologues`, K = 1
+   included): one concatenated relevance filter, one run-length
+   segmentation, and one stacked per-(query, type) predicate pass over
+   every event of each type across the whole flush, sliced back per pane.
+   The order-sensitive *finish* then walks panes in submission order, one
+   walk a pane: each burst's negation hits and edge masks, the sharing
+   policy's decision on each burst's groups, and each group's
+   masks/adjacency/injection rows captured as propagation *jobs*.  Nothing
+   here depends on the running aggregates, so the whole pane plans up
+   front.  Bursty streams do not repeat a pane's run lengths and predicate
+   bits, so no plan is kept past its pane.
 2. **execute** — jobs go to a :class:`~repro_torch.core.batch_exec
    .PaneBatchExecutor`, which buckets them by size (ragged edges padded
    where exact) and solves each bucket with **one** batched launch of the
@@ -59,13 +48,10 @@ A pane is processed in three engine phases plus the runtime's window fold:
    pane's steps are *levelized* (each per-query chain of graphlets — and
    its negation gates — stays strictly ordered; query-disjoint steps share
    a level) and every level folds as one stacked launch per shape bucket,
-   across the pane **and** across every pane of a micro-batch flush.  The
-   level schedule is cached on the :class:`~repro_torch.core.plan_cache.PanePlan`
-   and the merged K-pane flush plan in the executor's own LRU, so warm
-   panes skip fold planning entirely.  A *scannable* flush plan (no
-   negation splits, one d == 0 bucket per round) carries a compiled
-   execution form: on the torch/cuda backends the whole warm flush is
-   **one** logical device launch
+   across the pane **and** across every pane of a micro-batch flush.  A
+   *scannable* flush plan (no negation splits, one d == 0 bucket per
+   round) carries a compiled execution form: on the torch/cuda backends
+   the whole flush is **one** logical device launch
    (:func:`repro_torch.kernels.ops.fold_rounds_scan`: torch ops over the
    rounds on the device) and one host sync however deep the fold chain is
    — and on the numpy backend its fused host twin (one flush-wide
@@ -83,8 +69,8 @@ A pane is processed in three engine phases plus the runtime's window fold:
    as one stacked launch set.
 
 ``RunStats`` carries wall-clock timers for all four phases (``plan_s`` /
-``execute_s`` / ``finalize_s`` / ``fold_s``) and the plan-cache hit/miss
-counters, so benchmarks read the phase split straight from the engine.
+``execute_s`` / ``finalize_s`` / ``fold_s``), so benchmarks read the phase
+split straight from the engine.
 
 Observability: every layer accepts an optional ``obs=`` handle (a
 :class:`repro_torch.obs.Observability` facade — span tracer, metrics registry,
@@ -93,18 +79,18 @@ sharing-decision audit log).  Phase spans are recorded from the *same*
 the phase totals (a flush of K > 1 panes is one span a phase, timed once);
 the steps inside the phases are timed the same way into the
 ``RunStats.STEP_FIELDS`` clocks and ``"step"`` spans; the audit log
-captures each optimizer share/no-share decision verbatim as it enters the
-plan-cache key.  With ``obs=None`` (default) every hook is a single
+captures each optimizer share/no-share decision verbatim, and each pane's
+decided groups.  With ``obs=None`` (default) every hook is a single
 guarded attribute test — zero cost.
 
-Host/device residency on a fully-warm flush: the host side is the batched
-prologue (numpy vector passes), the plan-cache dict probes, and the
-executor submit bookkeeping; everything shape-dependent was precomputed
-into cached plans.  On the torch/cuda backends the execute phase launches
-every bucket before syncing once via ``ops.device_get_all`` (bucket
-outputs stay device-resident until that fetch — see ``batch_exec.py``),
-and the fold phase is one scan program whose index operands and fresh
-state already live on the device; its single fetch of the scanned state
+Host/device residency of a flush: the host side is the batched prologue
+(numpy vector passes), the burst walk with its step construction, the
+fold executor's flush plan, and the executor submit bookkeeping.  On the
+torch/cuda backends the execute phase launches every bucket before
+syncing once via ``ops.device_get_all`` (bucket outputs stay
+device-resident until that fetch — see ``batch_exec.py``), and the fold
+phase is one scan program whose index operands and fresh state go to the
+device as the flush plan is built; its single fetch of the scanned state
 is the flush's one fold-side sync point.  On the numpy backend the
 executor reuses host staging buffers across flushes instead.
 
@@ -121,7 +107,7 @@ Trend counts grow like 2^g and overflow fixed-width types for realistic panes
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, field
 from time import perf_counter
 from typing import ClassVar
 
@@ -133,7 +119,6 @@ from .batch_exec import PaneBatchExecutor, PropagateJob
 from .events import EventBatch, StreamSchema, pane_size_for, split_panes
 from .fold_exec import FoldExecutor
 from .gc_hold import collector_held
-from .plan_cache import PanePlan, PanePlanCache
 from .query import AtomicQuery, Workload
 from .template import QueryTemplate, build_template
 
@@ -242,11 +227,6 @@ class ComponentContext:
                            if self.match_flag[qi, el]] for el in range(t)}
         self.kle_pos = {el: [qi for qi in self.q_pos[el]
                              if self.kleene_flag[qi, el]] for el in range(t)}
-        # type ids whose kleene query set is too wide for the dyn-fast
-        # signature walk (empty on every shipped workload, so the per-pane
-        # gate is one isdisjoint probe instead of a max() genexpr)
-        self.kle_big = frozenset(tid for tid, el in self.local.items()
-                                 if len(self.kle_pos[el]) >= 60)
         # local types with at least one edge-predicated query (the per-burst
         # edge-mask walk is skipped entirely for the rest)
         self.edge_pred_els = {
@@ -311,7 +291,7 @@ class RunStats:
     propagate_cells: int = 0      # total solved cells (rows x basis cols)
     decisions: int = 0
     # decisions the policy evaluated fresh (a v1 memo miss, a v2 call);
-    # the rest replayed from its memo or the pane memo
+    # the rest replayed from its memo
     decide_evals: int = 0
     # event-level snapshots (Def. 9): sum of b^2 over the per-query edge
     # masks the per-burst walk built; rows of shared Kleene graphlets, and
@@ -327,9 +307,6 @@ class RunStats:
     execute_s: float = 0.0
     finalize_s: float = 0.0
     fold_s: float = 0.0
-    # plan-cache traffic (counted only when a cache is attached)
-    plan_cache_hits: int = 0
-    plan_cache_misses: int = 0
     # step clocks (seconds) and counts inside the phases, kept only while
     # an Observability is attached (see STEP_FIELDS)
     plan_prologue_s: float = 0.0
@@ -356,28 +333,26 @@ class RunStats:
     # Fields whose totals are invariant under group-disjoint sharding of the
     # stream: a fleet of runtimes processing a partition of the groups
     # produces the same sums as one runtime processing everything.  Wall
-    # timers (meaningful only as totals) and plan-cache traffic (each
-    # instance has its own cache, so hit/miss splits shift with placement)
-    # are excluded — and so are the sharing/snapshot counters: the
-    # share-or-split decision operates on the co-resident pane batch, so
-    # which groups live together changes the sharing opportunities taken
-    # (never the results).
+    # timers (meaningful only as totals) are excluded — and so are the
+    # sharing/snapshot counters: the share-or-split decision operates on
+    # the co-resident pane batch, so which groups live together changes
+    # the sharing opportunities taken (never the results).
     COUNT_FIELDS: ClassVar[tuple[str, ...]] = (
         "events", "bursts", "decisions", "panes", "windows_emitted")
 
     # The step clocks, read only with an Observability attached (all stay
     # 0 without one).  Plan's four lie inside ``plan_s`` (``plan_edge_s``:
-    # the per-burst walk's edge masks and their packed signature bits);
-    # what they leave of it is signature assembly and the plan-cache
-    # lookup.  Execute's three tile ``execute_s`` (the submits' injection
-    # rows and the executor's bucketing and stacking; the
-    # ``ops.propagate*`` calls with their host-to-device copies; the fetch
-    # and unpacking), as finalize's tile ``finalize_s`` with the fold
-    # executor (flush plan and ``S``; the scan launch or host rounds; the
-    # fetch and scatter), but not its sequential replay.  ``ingress_s`` / ``admit_s`` are the
-    # streaming layer's ``offer`` and admission, outside the four phases;
-    # ``gc_s`` / ``gc_collections`` the collector's pauses of the process,
-    # ``gc_full_collections`` those of its full (generation-2) passes.
+    # the burst walk's edge masks); what they leave of it is the walk's
+    # negation hits and match slices.  Execute's three tile ``execute_s``
+    # (the submits' injection rows and the executor's bucketing and
+    # stacking; the ``ops.propagate*`` calls with their host-to-device
+    # copies; the fetch and unpacking), as finalize's tile ``finalize_s``
+    # with the fold executor (flush plan and ``S``; the scan launch or host
+    # rounds; the fetch and scatter), but not its sequential replay.
+    # ``ingress_s`` / ``admit_s`` are the streaming layer's ``offer`` and
+    # admission, outside the four phases; ``gc_s`` / ``gc_collections`` the
+    # collector's pauses of the process, ``gc_full_collections`` those of
+    # its full (generation-2) passes.
     STEP_FIELDS: ClassVar[tuple[str, ...]] = (
         "plan_prologue_s", "plan_decide_s", "plan_edge_s", "plan_build_s",
         "execute_stage_s", "execute_launch_s", "execute_wait_s",
@@ -450,53 +425,37 @@ class _GroupPlan:
     em: np.ndarray | None         # in-burst adjacency (None when dense)
     start_q0: bool
     sum_units: list               # [(ui, injection values | None)]
-    bi: int = -1                  # index of the source burst within the pane
-    rows: list | None = None      # member rows within the burst's mvec stack
-    base_c: np.ndarray | None = None  # count-round injection rows (cacheable)
+    base_c: np.ndarray | None = None  # count-round injection rows
     trivial: bool = False         # non-Kleene: zero adjacency, result == base
 
     # NOTE: job handles live on the _PendingPane (parallel ``jobs`` list),
-    # never on the plan — group plans are immutable after construction so a
-    # cached pane shape can be reused zero-copy across panes and micro-batch
-    # members.
+    # never on the plan.
 
 
 class _Prologue:
-    """Order-independent phase-1 products of one pane: filtered events,
-    burst runs, stacked match vectors with their signature byte images, and
-    negation hits — everything :meth:`PaneProcessor._plan_finish` consumes
-    that does not read mutable planner state.  Built per pane by
-    :meth:`PaneProcessor._plan_prologue` or, for a whole micro-batch, in one
-    stacked pass by :meth:`PaneProcessor.plan_prologues`."""
+    """Order-independent phase-1 products of one pane, built for a whole
+    micro-batch in one stacked pass by :meth:`PaneProcessor.plan_prologues`:
+    filtered events, burst runs, stacked match vectors, negation hits, and
+    (pattern-based policies only) per-type packed divergence codes —
+    everything :meth:`PaneProcessor._plan_finish` consumes that does not
+    read mutable planner state."""
 
-    __slots__ = ("ev", "runs", "mv_type", "mv_bytes", "neg_type", "present",
-                 "has_edge", "codes", "runs_shape", "sig_mv")
+    __slots__ = ("ev", "runs", "mv_type", "neg_type", "codes")
 
-    def __init__(self, ev, runs, mv_type, mv_bytes, neg_type, present,
-                 has_edge, codes=None, runs_shape=None, sig_mv=None):
+    def __init__(self, ev, runs):
         self.ev = ev
         self.runs = runs
-        self.mv_type = mv_type
-        self.mv_bytes = mv_bytes
-        self.neg_type = neg_type
-        self.present = present
-        self.has_edge = has_edge
-        # per-type packed divergence images (pattern-based policies only):
+        self.mv_type: dict[int, np.ndarray] = {}
+        self.neg_type: dict[int, list] = {}
         # tid -> [n_events] int64 coverage codes, sliced per burst by the
-        # dyn-fast walk
-        self.codes = codes or {}
-        # precomputed ((tid, burst len), ...) signature prefix, shared by
-        # every plan-cache key form; None on the unbatched path
-        self.runs_shape = runs_shape
-        # the match-bit bytes of every live type in ``present`` order —
-        # the plan-cache key consumes this tuple as is
-        self.sig_mv = sig_mv
+        # decision step
+        self.codes: dict[int, np.ndarray] = {}
 
 
 class PaneProcessor:
     def __init__(self, ctx: ComponentContext, policy, backend: str = "cuda",
-                 max_local_basis: int = 512, executor=None, plan_cache=None,
-                 fold_exec=None, obs=None, comp: int = 0, device=None):
+                 max_local_basis: int = 512, executor=None, fold_exec=None,
+                 obs=None, comp: int = 0, device=None):
         self.ctx = ctx
         self.policy = policy
         self.backend = backend
@@ -506,47 +465,22 @@ class PaneProcessor:
         self.executor = (executor if executor is not None
                          else PaneBatchExecutor(backend=backend,
                                                 device=device))
-        self.plan_cache: PanePlanCache | None = plan_cache
         self.fold_exec = fold_exec
         # policy traits probed once (the plan hot path reads them per pane)
         self._policy_static = getattr(policy, "decision_static", False)
         self._policy_pattern = getattr(policy, "pattern_based", False)
-        # the PanePlan the most recent plan() hit or created (the fold
-        # schedule is cached on it); None when planning uncached
-        self._last_host: PanePlan | None = None
         # static sharing policies decide per (type, candidate set) only:
-        # their group layout is memoized per local type
-        self._static_groups: dict[int, tuple] = {}
+        # their shared sets are memoized per local type
+        self._static_groups: dict[int, list] = {}
         # divergence-image layout per local type (candidate rows, reference
         # row, start-flag diff) and burst-slice -> pattern-multiset memo for
-        # the dyn-fast walk; parked on the (long-lived) context so warm
+        # the decision step; parked on the (long-lived) context so warm
         # sweeps with fresh processors keep their memoized extraction
         if not hasattr(ctx, "kle_layout_memo"):
             ctx.kle_layout_memo = {}
             ctx.pats_memo = {}
-            ctx.dyn_pane_memo = {}
-            ctx.seg_memo = {}
         self._kle_layout: dict[int, tuple] = ctx.kle_layout_memo
         self._pats_cache: dict[bytes, tuple] = ctx.pats_memo
-        # micro-batch segmentation memo: (ktype bytes, pane bounds) ->
-        # (per-pane runs, per-type (tid, idx, off) layout)
-        self._seg_memo: dict[tuple, tuple] = ctx.seg_memo
-        # whole-pane decision-walk memo for the dyn-fast path: (runs shape,
-        # per-type divergence-code bytes) -> [(n_lo, n_hi, groups_all, sig_t,
-        # decisions, splits)] — valid while the running event count stays in
-        # the intersection of the bursts' decision-replay intervals
-        self._dyn_pane_memo: dict[tuple, list] = ctx.dyn_pane_memo
-
-    # -- burst segmentation (Def. 10) --
-
-    @staticmethod
-    def _segment(type_ids: np.ndarray) -> list[tuple[int, slice]]:
-        if len(type_ids) == 0:
-            return []
-        cut = np.nonzero(np.diff(type_ids))[0] + 1
-        bounds = np.concatenate([[0], cut, [len(type_ids)]])
-        return [(int(type_ids[bounds[i]]), slice(int(bounds[i]), int(bounds[i + 1])))
-                for i in range(len(bounds) - 1)]
 
     # -- main entry --
 
@@ -572,7 +506,8 @@ class PaneProcessor:
         # counts saturate to inf past float64 range (documented overflow
         # semantics) — keep the whole pipeline quiet about it
         with np.errstate(over="ignore", invalid="ignore"):
-            steps = self._plan_pane(pane, stats)
+            steps = self._plan_finish(pane, self.plan_prologues([pane])[0],
+                                      stats)
         dt = perf_counter() - t0
         stats.plan_s += dt
         obs = self.obs
@@ -581,13 +516,12 @@ class PaneProcessor:
                            key=obs.pane_key(pane) if obs.tracing else None)
         return steps
 
-    def _plan_pane(self, pane: EventBatch, stats: RunStats) -> list:
-        return self._plan_finish(pane, self._plan_prologue(pane), stats)
-
     def _wants_codes(self, el: int) -> bool:
         """Whether the prologue should pack a divergence image for this
-        local type (pattern-based policy with a real sharing choice)."""
+        local type: a pattern-based policy, a real sharing choice, and no
+        edge predicate (edge masks add to the divergence rows)."""
         return (self._policy_pattern
+                and not self.ctx.edge_pred_els[el]
                 and len(self.ctx.kle_pos[el]) >= 2
                 and len(self.ctx.kle_pos[el]) < 60)
 
@@ -612,68 +546,20 @@ class PaneProcessor:
             D[sdiff] |= mv[idx[sdiff]] | mv[ri]
         return bits @ D
 
-    def _plan_prologue(self, pane: EventBatch) -> "_Prologue":
-        """The order-independent half of phase 1: event filtering, burst
+    def plan_prologues(self, panes: list[EventBatch]) -> list["_Prologue"]:
+        """The order-independent half of phase 1 for the K panes of one
+        micro-batch flush (K = 1 included): event filtering, burst
         segmentation, and the stacked per-(query, type) predicate pass.
 
-        Touches no mutable planner state (``stats``, the benefit model, the
-        plan cache), so the micro-batcher may run it for all K panes of a
-        flush in one batched pass (:meth:`plan_prologues`) before the
-        order-sensitive :meth:`_plan_finish` walks replay in submission
-        order.
+        One relevance filter, one run-length segmentation (with forced
+        cuts at pane boundaries), and one predicate-stack pass per (query,
+        type) over the *concatenation* of all K panes; per-pane results are
+        slices of the stacked arrays.  Predicates evaluate elementwise, so
+        every slice equals a pass over its pane alone.  Touches no mutable
+        planner state (``stats``, the benefit model), so the
+        order-sensitive :meth:`_plan_finish` walks run after it in
+        submission order.
         """
-        ctx = self.ctx
-        keep = ctx.relevant_lut[pane.type_id]
-        ev = pane.select(np.nonzero(keep)[0])
-        runs = self._segment(ev.type_id)
-        if not runs:
-            return _Prologue(ev, runs, {}, {}, {}, [], False)
-
-        # stacked per-type predicate evaluation: one vectorized pass per
-        # (query, type) over *all* of the pane's events of that type, across
-        # every burst at once, instead of a Python predicate walk per burst.
-        # The transposed byte image of each stack doubles as the signature
-        # source: a burst's exact match bits are a contiguous slice of it.
-        mv_type: dict[int, np.ndarray] = {}
-        mv_bytes: dict[int, bytes] = {}
-        neg_type: dict[int, list] = {}
-        codes: dict[int, np.ndarray] = {}
-        cache = self.plan_cache
-        present: list[int] = []
-        has_edge = False
-        for tid_arr in np.unique(ev.type_id):
-            tid = int(tid_arr)
-            present.append(tid)
-            idx = np.nonzero(ev.type_id == tid)[0]
-            attrs_t = ev.attrs[idx]
-            if tid in ctx.neg_rules:
-                neg_type[tid] = [(qi, rule, ctx.match_vec(qi, tid, attrs_t))
-                                 for qi, rule in ctx.neg_rules[tid]]
-            el = ctx.local.get(tid)
-            if el is not None and ctx.q_pos[el]:
-                if ctx.edge_pred_els[el]:
-                    has_edge = True
-                mv_type[tid] = ctx.match_stack(ctx.q_pos[el], tid, attrs_t)
-                if cache is not None:
-                    mv_bytes[tid] = np.ascontiguousarray(
-                        mv_type[tid].T).tobytes()
-                if self._wants_codes(el):
-                    codes[tid] = self._div_codes(el, mv_type[tid])
-        return _Prologue(ev, runs, mv_type, mv_bytes, neg_type, present,
-                         has_edge, codes,
-                         sig_mv=(tuple(mv_bytes[t] for t in present
-                                       if t in mv_bytes)
-                                 if cache is not None else None))
-
-    def _seg_build(self, panes: list[EventBatch]) -> tuple:
-        """Cold half of :meth:`plan_prologues`: the full index plan for one
-        flush type-shape.  Returns ``(kidx, kb, ktype, perm, runs_per,
-        layout, shapes_per)`` where ``kidx`` gathers the kept rows out of
-        the pane-major attrs concatenation, ``perm`` gathers them in
-        type-major order for the stacked predicate pass, and each layout
-        entry carries every ctx-static per-type datum the warm loop reads
-        (element id, q_pos, negation rules, edge/code flags, per-pane
-        split offsets, type-major slice bounds)."""
         ctx = self.ctx
         type_cat = np.concatenate([p.type_id for p in panes])
         pb = np.cumsum([0] + [len(p) for p in panes])
@@ -689,192 +575,61 @@ class PaneProcessor:
         pos = np.searchsorted(cuts, kb)  # pane bounds are all in cuts
         cuts_l = cuts.tolist()
         tids_l = (ktype[cuts[:-1]].tolist() if len(ktype) else [])
-        runs_per = []
-        for i in range(len(panes)):
-            base = cuts_l[pos[i]]
-            runs_per.append([
-                (tids_l[j], slice(cuts_l[j] - base, cuts_l[j + 1] - base))
-                for j in range(pos[i], pos[i + 1])])
-        layout, perm_parts, lo = [], [], 0
-        all_static = True
-        for tid in sorted(set(tids_l)):
-            idx = np.nonzero(ktype == tid)[0]
-            el = ctx.local.get(tid)
-            live = el is not None and bool(ctx.q_pos[el])
-            qp = ctx.q_pos[el] if live else None
-            neg = ctx.neg_rules.get(tid)
-            wants = live and self._wants_codes(el)
-            stat = None
-            if live and not any(ctx._preds.get((qi, tid)) for qi in qp):
-                # predicate-free type: the stacked match pass is all-ones —
-                # a pure function of the type sequence — so the stack, its
-                # signature byte image, and the divergence codes are
-                # seg-static (consumers only ever read/slice them)
-                mv_cat = np.ones((len(qp), len(idx)), dtype=bool)
-                stat = (mv_cat, mv_cat.T.tobytes(), len(qp),
-                        self._div_codes(el, mv_cat) if wants else None)
-            elif live:
-                all_static = False
-            if neg is not None:
-                all_static = False
-            layout.append((tid, np.searchsorted(idx, kb).tolist(), el, live,
-                           el is not None and ctx.edge_pred_els[el],
-                           neg, qp, wants, lo, lo + len(idx), stat))
-            perm_parts.append(kidx[idx])
-            lo += len(idx)
-        perm = (np.concatenate(perm_parts) if perm_parts
-                else np.zeros(0, dtype=np.intp))
-        shapes_per = [tuple((tid, sl.stop - sl.start) for tid, sl in rs)
-                      for rs in runs_per]
-        static_pros = None
-        if all_static:
-            # every live type is predicate-free and no type carries
-            # negation rules: the whole per-pane prologue product except
-            # the filtered events themselves is seg-static
-            static_pros = []
-            for i in range(len(panes)):
-                mv_d, mvb_d, codes_d, pres = {}, {}, {}, []
-                edge = False
-                for (tid, off, el, live, edge_t, neg, qp, wants,
-                     lo_t, hi_t, stat) in layout:
-                    lo2, hi2 = off[i], off[i + 1]
-                    if lo2 == hi2:
-                        continue
-                    pres.append(tid)
-                    if stat is not None:
-                        mv_cat, img_b, nq, codes_cat = stat
-                        if edge_t:
-                            edge = True
-                        mv_d[tid] = mv_cat[:, lo2:hi2]
-                        mvb_d[tid] = img_b[lo2 * nq:hi2 * nq]
-                        if codes_cat is not None:
-                            codes_d[tid] = codes_cat[lo2:hi2]
-                sig = tuple(mvb_d[t] for t in pres if t in mvb_d)
-                static_pros.append((mv_d, mvb_d, codes_d, pres, edge, sig))
-        return (kidx, kb, ktype, perm, runs_per, layout, shapes_per,
-                static_pros)
-
-    def plan_prologues(self, panes: list[EventBatch]) -> list["_Prologue"]:
-        """Batched phase-1 prologue for K panes of one micro-batch flush.
-
-        One ``np.isin`` filter, one run-length segmentation (with forced
-        cuts at pane boundaries), and one predicate-stack pass per (query,
-        type) run over the *concatenation* of all K panes; per-pane results
-        are slices of the stacked arrays.  Predicates evaluate elementwise
-        and the byte images are row-major, so every slice — match vectors,
-        runs, signature bytes — is bitwise identical to the per-pane
-        :meth:`_plan_prologue` output.
-        """
-        if len(panes) == 1:
-            return [self._plan_prologue(panes[0])]
-        ctx = self.ctx
-        cache = self.plan_cache
-        # The whole index plan — keep indices, pane bounds, RLE runs, the
-        # per-type layout, and the type-major gather permutation — is a
-        # pure function of the pane type *sequences*, the recurrence the
-        # plan cache already banks on, so it is memoized on their raw
-        # bytes.  A warm flush then does one attrs concatenation plus two
-        # gathers before the predicate pass.
-        seg_key = tuple(p.type_id.tobytes() for p in panes)
-        seg = self._seg_memo.get(seg_key)
-        if seg is None:
-            if len(self._seg_memo) >= 2048:
-                self._seg_memo.clear()
-            seg = self._seg_memo[seg_key] = self._seg_build(panes)
-        (kidx, kb, ktype, perm, runs_per, layout, shapes_per,
-         static_pros) = seg
-        raw = np.concatenate([p.attrs for p in panes])
         # each pane's filtered view is a zero-copy row slice of the
         # pane-major gather (panes were validated at construction, so the
         # dataclass re-validation in select() is skipped).  These views
         # are plan-internal: the finish walk reads only ``len`` and
         # ``attrs``, so the time/group columns are never materialized.
-        attrs_sel = raw[kidx]
+        attrs_sel = np.concatenate([p.attrs for p in panes])[kidx]
         schema = panes[0].schema
-        evs = []
+        pros = []
         for i in range(len(panes)):
             ev = object.__new__(EventBatch)
             ev.schema = schema
             ev.type_id = ktype[kb[i]:kb[i + 1]]
             ev.attrs = attrs_sel[kb[i]:kb[i + 1]]
             ev.time = ev.group = ev.seq = None
-            evs.append(ev)
-        pros = [None] * len(panes)
-        if static_pros is not None:
-            # fully static flush shape: the attrs gather above is the only
-            # content-dependent work left in phase 1's prologue
-            for i, ev in enumerate(evs):
-                mv_d, mvb_d, codes_d, pres, edge, sig = static_pros[i]
-                pros[i] = _Prologue(ev, runs_per[i], mv_d,
-                                    mvb_d if cache is not None else {},
-                                    {}, pres, edge, codes_d, shapes_per[i],
-                                    sig if cache is not None else None)
-            return pros
-        # stacked predicate pass over each type's concatenated events; the
-        # per-pane split points were precomputed into the layout
-        attrs_ts = raw[perm]       # type-major rows for the predicate pass
-        mv_per: list[dict] = [{} for _ in panes]
-        mvb_per: list[dict] = [{} for _ in panes]
-        neg_per: list[dict] = [{} for _ in panes]
-        codes_per: list[dict] = [{} for _ in panes]
-        pres_per: list[list] = [[] for _ in panes]
-        sig_per: list[list] = [[] for _ in panes]
-        edge_per = [False] * len(panes)
-        for tid, off, el, live, edge_t, neg_rules, qp, wants_codes, \
-                lo_t, hi_t, stat in layout:
-            attrs_t = attrs_ts[lo_t:hi_t]
+            base = cuts_l[pos[i]]
+            pros.append(_Prologue(ev, [
+                (tids_l[j], slice(cuts_l[j] - base, cuts_l[j + 1] - base))
+                for j in range(pos[i], pos[i + 1])]))
+        # stacked predicate pass over each type's concatenated events,
+        # split back per pane at the type's pane bounds
+        for tid in sorted(set(tids_l)):
+            idx = np.nonzero(ktype == tid)[0]
+            off = np.searchsorted(idx, kb).tolist()
+            attrs_t = attrs_sel[idx]
+            el = ctx.local.get(tid)
+            neg_rules = ctx.neg_rules.get(tid)
             neg_cat = ([(qi, rule, ctx.match_vec(qi, tid, attrs_t))
                         for qi, rule in neg_rules]
                        if neg_rules is not None else None)
-            codes_cat = None
-            if live:
-                if stat is not None:
-                    mv_cat, img_b, row_b, codes_cat = stat
-                    if cache is None:
-                        img_b = None
-                else:
-                    mv_cat = ctx.match_stack(qp, tid, attrs_t)
-                    # one byte image for the whole type; per-pane signature
-                    # bytes are plain byte-string slices of it (row stride
-                    # = query count, C order of the transposed image)
-                    img_b = mv_cat.T.tobytes() if cache is not None else None
-                    row_b = mv_cat.shape[0] * mv_cat.itemsize
-                    if wants_codes:
-                        codes_cat = self._div_codes(el, mv_cat)
-            for i in range(len(panes)):
+            mv_cat = codes_cat = None
+            if el is not None and ctx.q_pos[el]:
+                mv_cat = ctx.match_stack(ctx.q_pos[el], tid, attrs_t)
+                if self._wants_codes(el):
+                    codes_cat = self._div_codes(el, mv_cat)
+            for i, pro in enumerate(pros):
                 lo, hi = off[i], off[i + 1]
                 if lo == hi:
                     continue
-                pres_per[i].append(tid)
                 if neg_cat is not None:
-                    neg_per[i][tid] = [(qi, rule, m[lo:hi])
-                                      for qi, rule, m in neg_cat]
-                if live:
-                    if edge_t:
-                        edge_per[i] = True
-                    mv_per[i][tid] = mv_cat[:, lo:hi]
-                    if img_b is not None:
-                        mvb = img_b[lo * row_b:hi * row_b]
-                        mvb_per[i][tid] = mvb
-                        sig_per[i].append(mvb)
-                    if codes_cat is not None:
-                        codes_per[i][tid] = codes_cat[lo:hi]
-        for i, ev in enumerate(evs):
-            pros[i] = _Prologue(ev, runs_per[i], mv_per[i], mvb_per[i],
-                                neg_per[i], pres_per[i], edge_per[i],
-                                codes_per[i], shapes_per[i],
-                                tuple(sig_per[i]) if cache is not None
-                                else None)
+                    pro.neg_type[tid] = [(qi, rule, m[lo:hi])
+                                         for qi, rule, m in neg_cat]
+                if mv_cat is not None:
+                    pro.mv_type[tid] = mv_cat[:, lo:hi]
+                if codes_cat is not None:
+                    pro.codes[tid] = codes_cat[lo:hi]
         return pros
 
     def _plan_finish(self, pane: EventBatch, pro: "_Prologue",
                      stats: RunStats) -> list:
-        """The order-sensitive half of phase 1: stats evolution, sharing
-        decisions (the benefit model reads the running event count), plan
-        cache traffic, and step construction.  Must run in pane submission
+        """The order-sensitive half of phase 1, one walk over the pane's
+        bursts: negation hits, match slices and edge masks; then the
+        sharing decisions (the benefit model reads the running event
+        count); then step construction.  Must run in pane submission
         order."""
         ctx = self.ctx
-        self._last_host = None
         obs = self.obs
         audit = obs.audit if obs is not None else None
         pkey = (obs.pane_key(pane)
@@ -888,79 +643,11 @@ class PaneProcessor:
         stats.bursts += len(runs)
         if not runs:
             return []
-        mv_type = pro.mv_type
-        mv_bytes = pro.mv_bytes
         neg_type = pro.neg_type
-        present = pro.present
-        has_edge = pro.has_edge
-        cache = self.plan_cache
 
-        # sharing decisions that never read the divergence structure
-        # (AlwaysShare / NeverShare) skip the per-burst divergence pass
-        static_policy = self._policy_static
-
-        # whole-pane fast signature: with a static policy, no negation types
-        # and no edge predicates in the pane, the structural plan is fully
-        # determined by the run-length encoding plus the stacked match bits
-        # — the per-burst signature walk is skipped entirely
-        fast = (cache is not None and static_policy and not neg_type
-                and not has_edge)
-        # dynamic-policy fast signature: pattern-based policies (the benefit
-        # model reads d_rows only through coverage-pattern counts) get the
-        # same whole-pane key, extended with the recomputed sharing decision
-        # — the fingerprint pass below reruns the benefit model per pane on
-        # the *exact* compressed decision inputs, so a benefit flip lands in
-        # a different cache entry instead of freezing the stale decision
-        dyn_fast = (cache is not None and not static_policy
-                    and self._policy_pattern
-                    and not neg_type and not has_edge
-                    and ctx.kle_big.isdisjoint(mv_type))
-        key: tuple | None = None
-        dyn_groups: list | None = None
-        rs = pro.runs_shape
-        if rs is None and cache is not None:
-            rs = tuple((tid, sl.stop - sl.start) for tid, sl in runs)
-        sig_mv = pro.sig_mv
-        if sig_mv is None and cache is not None:
-            sig_mv = tuple(mv_bytes[t] for t in present if t in mv_bytes)
-        if fast:
-            key = ("F", self.max_local_basis, rs, sig_mv)
-            plan = cache.get(key)
-            if plan is not None:
-                return self._hit(plan, stats, pkey, self._instantiate_fast,
-                                 runs, ev, mv_type)
-            stats.plan_cache_misses += 1
-            if obs is not None:
-                obs.cache_event(False, pkey)
-        elif dyn_fast:
-            t_d = perf_counter() if obs is not None else 0.0
-            dyn_groups, key = self._dyn_fast_groups(runs, ev, mv_type,
-                                                    mv_bytes, present, stats,
-                                                    codes=pro.codes,
-                                                    pkey=pkey, audit=audit,
-                                                    runs_shape=rs,
-                                                    sig_mv=sig_mv)
-            if obs is not None:
-                obs.step("plan.decide", "plan_decide_s", t_d, perf_counter(),
-                         stats)
-            plan = cache.get(key)
-            if plan is not None:
-                return self._hit(plan, stats, pkey, self._instantiate_fast,
-                                 runs, ev, mv_type)
-            stats.plan_cache_misses += 1
-            if obs is not None:
-                obs.cache_event(False, pkey)
-        dec0 = stats.decisions
-
-        # per-burst planning inputs + the exact pane signature.  The
-        # signature stores full discriminating bytes (mask-bit slices, the
-        # decided groups) — see core/plan_cache.py for why nothing is hashed
-        # lossily.
         cursor: dict[int, int] = {}
-        plan_bursts: list = []
-        key_groups: list = []
-        sig: list = [(self.max_local_basis, rs)]
-        for ri_, (tid, sl) in enumerate(runs):
+        bursts: list = []
+        for tid, sl in runs:
             b = sl.stop - sl.start
             c = cursor.get(tid, 0)
             cursor[tid] = c + b
@@ -969,159 +656,116 @@ class PaneProcessor:
             hits = None
             if tid in neg_type:
                 hits = [(qi, rule) for qi, rule, m in neg_type[tid]
-                        if m[c:c + b].any()]
-                if not hits:
-                    hits = None
+                        if m[c:c + b].any()] or None
 
             burst = None
-            sig_part: tuple | None = None
             el = ctx.local.get(tid)
             if el is not None and ctx.q_pos[el]:
                 q_pos = ctx.q_pos[el]
-                nq = len(q_pos)
                 attrs = ev.attrs[sl]
-                mvec = mv_type[tid][:, c:c + b]
                 if ctx.edge_pred_els[el]:
                     t_e = perf_counter() if obs is not None else 0.0
                     epm = [ctx.edge_mask(qi, tid, attrs) for qi in q_pos]
-                    epm_sig = tuple(
-                        None if m is None else np.packbits(m).tobytes()
-                        for m in epm)
                     stats.edge_mask_cells += b * b * sum(m is not None
                                                          for m in epm)
                     if obs is not None:
                         obs.step("plan.edge", "plan_edge_s", t_e,
                                  perf_counter(), stats)
                 else:
-                    epm = [None] * nq
-                    epm_sig = None
+                    epm = [None] * len(q_pos)
+                codes = pro.codes.get(tid)
+                burst = (tid, el, attrs, b, q_pos,
+                         pro.mv_type[tid][:, c:c + b], epm,
+                         None if codes is None else codes[c:c + b])
+            bursts.append((hits, burst))
 
-                # sharing decision (Sec. 4): candidates have E+ (Def. 4).
-                # Decided fresh on every pane — the benefit model tracks the
-                # running event count — and folded into the cache key below.
-                # Static policies (decision independent of the burst) reuse
-                # their memoized per-type group layout; a dyn-fast miss
-                # injects the fingerprint pass's decisions (already counted).
-                kle = ctx.kle_pos[el]
-                memo = (self._static_groups.get(el) if static_policy
-                        else None)
-                if dyn_groups is not None:
-                    groups = dyn_groups[ri_]
-                    groups_sig = None
-                elif memo is not None:
-                    groups, groups_sig = memo
-                    if len(kle) >= 2:
-                        stats.decisions += 1
-                        if audit is not None:
-                            audit.record(pane=pkey, comp=self.comp, el=el,
-                                         candidates=kle, decided=groups_sig,
-                                         b=b, n=stats.events)
-                else:
-                    groups = []
-                    if len(kle) >= 2:
-                        # a clock a burst, and no span
-                        t_d = perf_counter() if obs is not None else 0.0
-                        d_rows = (None if static_policy else
-                                  self._divergence_rows(q_pos, kle, el,
-                                                        mvec, epm))
-                        shared_sets = self.policy.decide(
-                            ctx=ctx, el=el, candidates=kle, d_rows=d_rows,
-                            b=b, n=stats.events, stats=stats)
-                        if obs is not None:
-                            stats.plan_decide_s += perf_counter() - t_d
-                        in_shared = set(qq for s in shared_sets for qq in s)
-                        groups.extend([s for s in shared_sets
-                                       if len(s) >= 2])
-                        groups.extend([[qi] for s in shared_sets
-                                       if len(s) == 1 for qi in s])
-                        groups.extend([[qi] for qi in kle
-                                       if qi not in in_shared])
-                    else:
-                        groups.extend([[qi] for qi in kle])
-                    groups.extend([[qi] for qi in q_pos if qi not in kle])
-                    groups_sig = tuple(map(tuple, groups))
-                    if static_policy:
-                        self._static_groups[el] = (groups, groups_sig)
-                    if audit is not None and len(kle) >= 2:
-                        audit.record(
-                            pane=pkey, comp=self.comp, el=el, candidates=kle,
-                            decided=groups_sig, b=b, n=stats.events,
-                            benefit=getattr(self.policy, "last_benefit",
-                                            None),
-                            patterns=getattr(self.policy, "last_patterns",
-                                             None))
-                burst = (tid, el, attrs, b, q_pos, mvec, epm, groups)
-                if cache is not None and not fast and not dyn_fast:
-                    sig_part = (mv_bytes[tid][c * nq:(c + b) * nq], epm_sig,
-                                groups_sig)
-
-            plan_bursts.append((hits, burst))
-            if cache is not None and not fast and not dyn_fast:
-                sig.append((
-                    tid,
-                    None if hits is None else tuple(qi for qi, _ in hits),
-                    sig_part))
-                if audit is not None:
-                    key_groups.append(None if burst is None else groups_sig)
-
-        if cache is not None and not fast and not dyn_fast:
-            key = tuple(sig)
-            if audit is not None:
-                audit.note_pane(pkey, tuple(key_groups), comp=self.comp)
-            plan = cache.get(key)
-            if plan is not None:
-                return self._hit(plan, stats, pkey, self._instantiate,
-                                 plan_bursts)
-            stats.plan_cache_misses += 1
-            if obs is not None:
-                obs.cache_event(False, pkey)
-        t_b = perf_counter() if obs is not None else 0.0
-        before = cache.snapshot_stats(stats) if cache is not None else None
+        # sharing decisions (Sec. 4), decided fresh on every pane: the
+        # benefit model tracks the running event count
+        t_d = perf_counter() if obs is not None else 0.0
+        plan_bursts: list = []
+        key_groups: list = []
+        for hits, burst in bursts:
+            if burst is None:
+                plan_bursts.append((hits, None))
+                key_groups.append(None)
+                continue
+            tid, el, attrs, b, q_pos, mvec, epm, codes = burst
+            groups = self._decide(el, b, q_pos, mvec, epm, codes, stats,
+                                  pkey, audit)
+            plan_bursts.append((hits, (tid, el, attrs, b, q_pos, mvec, epm,
+                                       groups)))
+            key_groups.append(tuple(map(tuple, groups)))
+        if audit is not None:
+            audit.note_pane(pkey, tuple(key_groups), comp=self.comp)
+        if obs is not None:
+            t_b = perf_counter()
+            obs.step("plan.decide", "plan_decide_s", t_d, t_b, stats)
 
         steps = self._build_steps(plan_bursts, stats)
-
-        if cache is not None:
-            delta = cache.stat_delta(before, stats)
-            if fast:
-                # the fast hit skips the per-burst walk, so its sharing
-                # decisions replay via the stat delta too (a dyn-fast hit
-                # instead reruns the benefit model live, so its decision
-                # counters must *not* be replayed)
-                delta["decisions"] = stats.decisions - dec0
-            zero_copy = (not ctx.sum_unit_cols and all(
-                isinstance(s, _NegStep) or len(s.div_rows) == 0
-                for s in steps))
-            plan = PanePlan(steps=[self._strip(s) for s in steps],
-                            stat_delta=delta, zero_copy=zero_copy)
-            cache.put(key, plan)
-            self._last_host = plan
         if obs is not None:
             obs.step("plan.build", "plan_build_s", t_b, perf_counter(), stats)
         return steps
 
-    def _hit(self, plan: PanePlan, stats: RunStats, pkey, instantiate,
-             *args) -> list:
-        """A plan-cache hit: count it, replay the plan's stat delta, and
-        rehydrate its steps with ``instantiate`` (the build step)."""
-        stats.plan_cache_hits += 1
-        obs = self.obs
-        if obs is not None:
-            obs.cache_event(True, pkey)
-        plan.apply_stats(stats)
-        self._last_host = plan
-        if obs is None:
-            return instantiate(plan, *args)
-        t0 = perf_counter()
-        steps = instantiate(plan, *args)
-        obs.step("plan.build", "plan_build_s", t0, perf_counter(), stats)
-        return steps
+    def _decide(self, el: int, b: int, q_pos: list, mvec: np.ndarray,
+                epm: list, codes: np.ndarray | None, stats: RunStats, pkey,
+                audit) -> list:
+        """One burst's groups: the candidates (Kleene queries, Def. 4) the
+        policy shares, then singletons for the rest of ``q_pos``.
+
+        A pattern-based policy decides from the burst's slice of the
+        prologue's divergence codes (``codes``, packed for edge-free
+        types) through ``decide_patterns``; any other burst goes through
+        ``decide`` with its divergence rows.  Both inputs compress to the
+        same coverage patterns (``optimizer.divergence_patterns``), so
+        they decide alike.  Static policies decide per local type once."""
+        ctx = self.ctx
+        kle = ctx.kle_pos[el]
+        rest = [[qi] for qi in q_pos if qi not in kle]
+        if len(kle) < 2:
+            return [[qi] for qi in kle] + rest
+        policy = self.policy
+        memo = self._static_groups.get(el)
+        if memo is not None:
+            stats.decisions += 1
+            shared_sets = memo
+        elif codes is not None:
+            cb = codes.tobytes()
+            pats = self._pats_cache.get(cb)
+            if pats is None:
+                nz = codes[codes != 0]
+                vals, counts = np.unique(nz, return_counts=True)
+                pats = tuple(zip(vals.tolist(), counts.tolist()))
+                if len(self._pats_cache) >= 8192:
+                    self._pats_cache.clear()
+                self._pats_cache[cb] = pats
+            shared_sets = policy.decide_patterns(
+                patterns=pats, candidates=kle, b=b, n=stats.events,
+                t=max(1, ctx.layout.t), stats=stats)
+        else:
+            d_rows = (None if self._policy_static else
+                      self._divergence_rows(q_pos, kle, el, mvec, epm))
+            shared_sets = policy.decide(
+                ctx=ctx, el=el, candidates=kle, d_rows=d_rows, b=b,
+                n=stats.events, stats=stats)
+            if self._policy_static:
+                self._static_groups[el] = shared_sets
+        in_shared = set(qq for s in shared_sets for qq in s)
+        groups = ([s for s in shared_sets if len(s) >= 2]
+                  + [[qi] for s in shared_sets if len(s) == 1 for qi in s]
+                  + [[qi] for qi in kle if qi not in in_shared] + rest)
+        if audit is not None:
+            audit.record(
+                pane=pkey, comp=self.comp, el=el, candidates=kle,
+                decided=tuple(map(tuple, groups)), b=b, n=stats.events,
+                benefit=getattr(policy, "last_benefit", None),
+                patterns=getattr(policy, "last_patterns", None))
+        return groups
 
     def _build_steps(self, plan_bursts: list, stats: RunStats) -> list:
-        """Construct the structural step list (the cacheable part of phase 1:
-        group plans with divergence layout, adjacency, z columns, and
-        count-round injection rows)."""
+        """Construct the step list: group plans with divergence layout,
+        adjacency, z columns, and count-round injection rows."""
         steps: list = []
-        for bi, (hits, burst) in enumerate(plan_bursts):
+        for hits, burst in plan_bursts:
             if hits:
                 steps.append(_NegStep(hits))
             if burst is None:
@@ -1135,83 +779,7 @@ class PaneProcessor:
                 stats.graphlets += 1
                 rows = [qpos_index[qi] for qi in g]
                 self._plan_group(g, el, tid, attrs, b, mvec[rows],
-                                 [epm[i] for i in rows], steps, stats, bi,
-                                 rows)
-        return steps
-
-    @staticmethod
-    def _strip(step):
-        """Template form of a step for caching: drop per-pane data (attrs,
-        match vectors, edge masks, sum values, job handles); keep the
-        structural arrays, the count-round injection rows, and the member
-        row indices within the burst's stacked match matrix."""
-        if isinstance(step, _NegStep):
-            return step
-        return replace(step, attrs=None, mvec=None, epm=None, sum_units=())
-
-    def _instantiate(self, plan: PanePlan, plan_bursts: list) -> list:
-        """Rehydrate a cached plan against this pane's fresh data: swap in
-        the new attribute arrays, match vectors, edge masks and sum-unit
-        values; everything structural is reused as-is.  Copies bypass the
-        dataclass constructor — this runs per group per pane on the hit
-        path."""
-        if plan.zero_copy:
-            return plan.steps
-        steps: list = []
-        sum_units_cache: dict[int, list] = {}
-        for st in plan.steps:
-            if isinstance(st, _NegStep):
-                steps.append(st)
-                continue
-            _, burst = plan_bursts[st.bi]
-            tid, el, attrs, b, q_pos, mvec, epm, groups = burst
-            gp = object.__new__(_GroupPlan)
-            gp.__dict__.update(st.__dict__)
-            if len(st.div_rows):
-                # per-event snapshot fills read the fresh data; groups
-                # without divergence never touch attrs/mvec/epm in finalize
-                rows = st.rows
-                gp.attrs = attrs
-                gp.mvec = mvec[rows]
-                gp.epm = [epm[i] for i in rows]
-            su = sum_units_cache.get(st.bi)
-            if su is None:
-                su = sum_units_cache[st.bi] = self._sum_units_for(
-                    tid, attrs, b)
-            gp.sum_units = su
-            steps.append(gp)
-        return steps
-
-    def _instantiate_fast(self, plan: PanePlan, runs: list, ev: EventBatch,
-                          mv_type: dict) -> list:
-        """Rehydrate a fast-keyed plan (static policy, no negation, no edge
-        predicates in the pane).  Zero-copy when no step carries per-pane
-        data; otherwise only the data-bearing fields are rebuilt."""
-        if plan.zero_copy:
-            return plan.steps
-        cursor: dict[int, int] = {}
-        info: list[tuple] = []
-        for tid, sl in runs:
-            b = sl.stop - sl.start
-            c = cursor.get(tid, 0)
-            cursor[tid] = c + b
-            info.append((tid, sl, c, b))
-        steps: list = []
-        sum_units_cache: dict[int, list] = {}
-        for st in plan.steps:
-            tid, sl, c, b = info[st.bi]
-            gp = object.__new__(_GroupPlan)
-            gp.__dict__.update(st.__dict__)
-            if len(st.div_rows):
-                gp.attrs = ev.attrs[sl]
-                gp.mvec = mv_type[tid][:, c:c + b][st.rows]
-                gp.epm = [None] * len(st.rows)
-            su = sum_units_cache.get(st.bi)
-            if su is None:
-                su = sum_units_cache[st.bi] = self._sum_units_for(
-                    tid, ev.attrs[sl], b)
-            gp.sum_units = su
-            steps.append(gp)
+                                 [epm[i] for i in rows], steps, stats)
         return steps
 
     def _sum_units_for(self, type_id: int, attrs: np.ndarray, b: int) -> list:
@@ -1219,129 +787,6 @@ class PaneProcessor:
         return [(ui, None if tid != type_id
                  else (np.ones(b) if col is None else attrs[:, col]))
                 for ui, tid, col in self.ctx.sum_unit_cols]
-
-    # -- dynamic-policy fast-key fingerprint pass --
-
-    def _dyn_fast_groups(self, runs: list, ev: EventBatch, mv_type: dict,
-                         mv_bytes: dict, present: list, stats: RunStats,
-                         codes: dict | None = None, pkey=None,
-                         audit=None, runs_shape=None,
-                         sig_mv: tuple | None = None) -> tuple[list, tuple]:
-        """Whole-pane fast key for pattern-based dynamic policies.
-
-        Requires an edge-free, negation-free pane.  One vectorized
-        divergence image per type (the stacked twin of
-        :meth:`_divergence_rows` without the edge term) is sliced per burst
-        into coverage-pattern multisets — the benefit model's decision
-        inputs, compressed exactly (see ``optimizer.divergence_patterns``)
-        — and the sharing decision is recomputed from them via
-        ``policy.decide_patterns``.  The decided groups join the fast
-        signature, so zero-copy reuse extends to :class:`~repro_torch.core
-        .optimizer.DynamicPolicy` panes while a benefit flip (the running
-        event count crossing a cost threshold) misses into a fresh entry.
-        Returns (per-run groups for injection into the plan walk, key).
-
-        The whole walk is memoized per (runs shape, per-type divergence-code
-        bytes): the sharing decisions are pure functions of the coverage
-        patterns, ``b`` and the running event count ``n``, and the policy
-        reports the exact ``n`` interval on which each decision replays
-        (:attr:`~repro_torch.core.optimizer._PolicyBase.last_interval`).  A warm
-        pane whose ``n`` lands inside the recorded intersection skips the
-        per-burst loop entirely — one dict probe replaces the decision walk.
-        Audit-enabled runs bypass the memo (the audit log wants per-burst
-        benefit values, which vary with ``n`` inside an interval).
-        """
-        ctx = self.ctx
-        codes_type = codes
-        n_pane = stats.events
-        if runs_shape is None:
-            runs_shape = tuple((tid, sl.stop - sl.start) for tid, sl in runs)
-        if sig_mv is None:
-            sig_mv = tuple(mv_bytes[t] for t in present if t in mv_bytes)
-        pm_key: tuple | None = None
-        if audit is None:
-            pm_key = (runs_shape,
-                      tuple(a.tobytes() for a in codes_type.values()))
-            ent = self._dyn_pane_memo.get(pm_key)
-            if ent is not None:
-                for lo, hi, groups_all, sig_t, n_dec, n_split in ent:
-                    if lo <= n_pane <= hi:
-                        stats.decisions += n_dec
-                        stats.split_bursts += n_split
-                        key = ("FD", self.max_local_basis, runs_shape,
-                               sig_mv, sig_t)
-                        return groups_all, key
-        dec0 = stats.decisions
-        split0 = stats.split_bursts
-        iv_lo, iv_hi = None, None
-        memoable = pm_key is not None
-        pats_cache = self._pats_cache
-        groups_all: list = []
-        sig: list = []
-        cursor: dict[int, int] = {}
-        t_layout = max(1, ctx.layout.t)
-        for tid, sl in runs:
-            b = sl.stop - sl.start
-            c = cursor.get(tid, 0)
-            cursor[tid] = c + b
-            el = ctx.local.get(tid)
-            if el is None or not ctx.q_pos[el]:
-                groups_all.append(None)
-                sig.append(None)
-                continue
-            kle = ctx.kle_pos[el]
-            groups: list = []
-            pats = None
-            if len(kle) >= 2:
-                csl = codes_type[tid][c:c + b]
-                cb = csl.tobytes()
-                pats = pats_cache.get(cb)
-                if pats is None:
-                    nz = csl[csl != 0]
-                    vals, counts = np.unique(nz, return_counts=True)
-                    pats = tuple(zip(vals.tolist(), counts.tolist()))
-                    if len(pats_cache) >= 8192:
-                        pats_cache.clear()
-                    pats_cache[cb] = pats
-                shared_sets = self.policy.decide_patterns(
-                    patterns=pats, candidates=kle, b=b, n=stats.events,
-                    t=t_layout, stats=stats)
-                iv = self.policy.last_interval
-                if iv is None:
-                    memoable = False
-                else:
-                    iv_lo = iv[0] if iv_lo is None else max(iv_lo, iv[0])
-                    iv_hi = iv[1] if iv_hi is None else min(iv_hi, iv[1])
-                in_shared = set(qq for s in shared_sets for qq in s)
-                groups.extend([s for s in shared_sets if len(s) >= 2])
-                groups.extend([[qi] for s in shared_sets
-                               if len(s) == 1 for qi in s])
-                groups.extend([[qi] for qi in kle if qi not in in_shared])
-            else:
-                groups.extend([[qi] for qi in kle])
-            groups.extend([[qi] for qi in ctx.q_pos[el] if qi not in kle])
-            groups_all.append(groups)
-            sig.append(tuple(map(tuple, groups)))
-            if audit is not None and len(kle) >= 2:
-                audit.record(
-                    pane=pkey, comp=self.comp, el=el, candidates=kle,
-                    decided=sig[-1], b=b, n=stats.events,
-                    benefit=getattr(self.policy, "last_benefit", None),
-                    patterns=pats)
-        sig_t = tuple(sig)
-        if audit is not None:
-            audit.note_pane(pkey, sig_t, comp=self.comp)
-        if memoable:
-            lo, hi = ((iv_lo, iv_hi) if iv_lo is not None
-                      else (0, float("inf")))
-            if lo <= hi:
-                if len(self._dyn_pane_memo) >= 4096:
-                    self._dyn_pane_memo.clear()
-                self._dyn_pane_memo.setdefault(pm_key, []).append(
-                    (lo, hi, groups_all, sig_t,
-                     stats.decisions - dec0, stats.split_bursts - split0))
-        key = ("FD", self.max_local_basis, runs_shape, sig_mv, sig_t)
-        return groups_all, key
 
     # -- divergence detection (per-event signature differences) --
 
@@ -1372,8 +817,7 @@ class PaneProcessor:
     # -- group (graphlet) planning --
 
     def _plan_group(self, g, el, type_id, attrs, b, mvec, epm,
-                    steps: list, stats: RunStats, bi: int = -1,
-                    rows: list | None = None) -> None:
+                    steps: list, stats: RunStats) -> None:
         ctx = self.ctx
         nu = ctx.nu
         shared = len(g) >= 2
@@ -1414,8 +858,7 @@ class PaneProcessor:
             for qi in g:
                 j = g.index(qi)
                 self._plan_group([qi], el, type_id, attrs, b,
-                                 mvec[[j]], [epm[j]], steps, stats, bi,
-                                 None if rows is None else [rows[j]])
+                                 mvec[[j]], [epm[j]], steps, stats)
             stats.split_bursts += 1
             return
 
@@ -1463,10 +906,10 @@ class PaneProcessor:
             epm=epm, shared=shared, div=div, div_rows=div_rows, live=live,
             dead=dead, B_local=B_local, z_ids=z_ids, dense=dense, em=em,
             start_q0=bool(ctx.start_flag[g[0], el]),
-            sum_units=self._sum_units_for(type_id, attrs, b), bi=bi,
-            rows=rows, trivial=not kleene)
-        # injection-row layout is structural: build it at plan time so the
-        # plan cache carries it and repeated shapes skip the construction
+            sum_units=self._sum_units_for(type_id, attrs, b),
+            trivial=not kleene)
+        # count-round injection rows, built once: the execute submit and the
+        # fold executor's pre-summed trivial rows both read them
         plan.base_c = self._count_base(plan)
         steps.append(plan)
 
@@ -1691,17 +1134,13 @@ class PaneProcessor:
 class _PendingPane:
     """A planned pane awaiting execution/finalization in a micro-batch.
 
-    ``jobs`` holds the executor handles parallel to ``steps`` — kept off the
-    (possibly cache-shared) plan objects so the same planned shape can be in
-    flight for several panes of one micro-batch at once.  ``plan_host`` is
-    the :class:`~repro_torch.core.plan_cache.PanePlan` this pane hit or created
-    (the fold executor caches its level schedule there)."""
+    ``jobs`` holds the executor handles parallel to ``steps``, kept off the
+    plan objects."""
 
     proc: PaneProcessor
     steps: list
     stats: RunStats
     jobs: list = field(default_factory=list)
-    plan_host: object = None
     M: np.ndarray | None = None
     pane_key: tuple | None = None
     pane: EventBatch | None = None    # unplanned payload until drain()
@@ -1779,7 +1218,6 @@ class PaneMicroBatcher:
                          perf_counter())
             for p in pend:
                 p.steps = p.proc._plan_finish(p.pane, pros[id(p)], p.stats)
-                p.plan_host = p.proc._last_host
                 p.jobs = [None] * len(p.steps)
         self._phase(pend, "plan", t0, perf_counter())
 
@@ -1836,8 +1274,8 @@ class PaneMicroBatcher:
                        if obs is not None else NULL_SPAN)
                 with fsp:
                     t1 = perf_counter()
-                    fjobs = [fe.submit(p.proc, p.steps, p.jobs, p.stats,
-                                       host=p.plan_host) for p in pend]
+                    fjobs = [fe.submit(p.proc, p.steps, p.jobs, p.stats)
+                             for p in pend]
                     fe.flush()
                     for p, fj in zip(pend, fjobs):
                         p.M = fj.M
@@ -1894,8 +1332,8 @@ class HamletRuntime:
     ``micro_batch`` sets the cross-pane fusion factor K: planned panes
     accumulate and their propagation backlogs flush together, one launch per
     size bucket per K panes (bitwise identical to ``micro_batch=1``).
-    ``plan_cache`` attaches a per-component :class:`PanePlanCache` shared by
-    every processor the runtime spawns (see ``core/plan_cache.py``).
+    ``plan_cache`` is accepted and ignored: planning keeps no memo of
+    whole panes, and the benchmark's drivers still pass the keyword.
     ``shard_slices`` splits each bucket's launch into sub-batch launches
     (the pane-batch sharding hook of ``core/batch_exec.py``).
     ``obs`` attaches a :class:`repro_torch.obs.Observability` facade: phase spans,
@@ -1908,7 +1346,7 @@ class HamletRuntime:
     def __init__(self, workload: Workload, policy=None, backend: str = "cuda",
                  batch_exec: bool = True, shard_slices=None,
                  micro_batch: int = 1, plan_cache: bool = True,
-                 plan_cache_size: int = 128, fold_exec: bool = True,
+                 fold_exec: bool = True,
                  obs=None, device=None):
         from .optimizer import DynamicPolicy
 
@@ -1923,8 +1361,6 @@ class HamletRuntime:
         self.ctxs = [ComponentContext(workload.schema,
                                       [workload.atomic[i] for i in comp])
                      for comp in self.components]
-        self.plan_caches = [PanePlanCache(plan_cache_size) if plan_cache
-                            else None for _ in self.ctxs]
         # one executor for the whole runtime: every pane — shed or admitted,
         # any component — funnels its jobs through the same bucketed batches
         self.executor = PaneBatchExecutor(backend=backend, batched=batch_exec,
@@ -1946,21 +1382,11 @@ class HamletRuntime:
 
     def make_processor(self, ci: int) -> PaneProcessor:
         """A processor for component ``ci`` wired to the runtime's shared
-        executor, plan cache and observability facade (used by the
+        executor and observability facade (used by the
         overload / event-time layers)."""
         return PaneProcessor(self.ctxs[ci], self.policy, backend=self.backend,
                              executor=self.executor,
-                             plan_cache=self.plan_caches[ci],
                              fold_exec=self.fold_exec, obs=self.obs, comp=ci)
-
-    def plan_cache_stats(self) -> dict:
-        """Aggregate plan-cache counters across components."""
-        hits = sum(c.hits for c in self.plan_caches if c is not None)
-        misses = sum(c.misses for c in self.plan_caches if c is not None)
-        return {"hits": hits, "misses": misses,
-                "entries": sum(len(c) for c in self.plan_caches
-                               if c is not None),
-                "hit_rate": hits / (hits + misses) if hits + misses else 0.0}
 
     def empty_pane_matrices(self) -> list[np.ndarray]:
         """Per-component transfer matrix of an event-free pane (cached).
@@ -1978,7 +1404,6 @@ class HamletRuntime:
             self._empty_M = [
                 PaneProcessor(self.ctxs[ci], self.policy,
                               backend=self.backend, executor=self.executor,
-                              plan_cache=self.plan_caches[ci],
                               fold_exec=self.fold_exec).process(empty,
                                                                 scratch)
                 for ci in range(len(self.ctxs))]

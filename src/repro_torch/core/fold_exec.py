@@ -1,13 +1,13 @@
-"""Stacked, cache-aware finalize/fold executor (phases 3-4 of the pipeline).
+"""Stacked finalize/fold executor (phases 3-4 of the pipeline).
 
-``PaneProcessor.finalize`` historically replayed a pane group by group: per
-graphlet a Python-level coefficient fold (``W`` build, event-snapshot fills,
-``S @ W``) against the running state functionals.  With planning memoized and
-execute launches fused, that per-graphlet Python became the dominant
-warm-pane cost.  This module lifts the replay out of the engine into a
-:class:`FoldExecutor` that mirrors ``batch_exec.PaneBatchExecutor``: it
-buckets same-shape graphlets — across a pane *and* across every pane of a
-micro-batch flush — and folds each bucket with one stacked matmul set.
+``PaneProcessor.finalize`` replays a pane group by group: per graphlet a
+Python-level coefficient fold (``W`` build, event-snapshot fills, ``S @ W``)
+against the running state functionals.  With execute launches fused, that
+per-graphlet Python would dominate a pane's cost.  This module lifts the
+replay out of the engine into a :class:`FoldExecutor` that mirrors
+``batch_exec.PaneBatchExecutor``: it buckets same-shape graphlets — across
+a pane *and* across every pane of a micro-batch flush — and folds each
+bucket with one stacked matmul set.
 
 Correctness model (what may and may not be reordered)
 -----------------------------------------------------
@@ -39,21 +39,18 @@ updates per divergent row) advances all bucket members one divergent row at
 a time; members are independent, so interleaving them is a no-op, and the
 per-row arithmetic keeps the sequential operand order.
 
-Cache tiers (warm panes skip fold planning entirely)
-----------------------------------------------------
-* the per-plan **level schedule** — step levels, negation split points,
-  per-level shape buckets with member index arrays — is cached on the
-  :class:`~repro_torch.core.plan_cache.PanePlan` next to the step list;
-* the **flush plan** — the merged per-round buckets of a whole (ctx,
-  K-pane schedule combination), with flat gather/scatter indices into the
-  stacked state, pre-summed ``S`` rows for trivial graphlets (their count
-  coefficients *are* the cached injection rows), and a flush-global
-  batched-by-burst-length layout for the dynamic ``S`` fills — lives in a
-  bounded LRU on the executor.
-
-A warm steady stream therefore pays, per round: one ``take`` of the state
-rows, two batched matmuls, one fancy-indexed scatter — plus a handful of
-flush-wide stacked column sums.
+Flush plan
+----------
+Each pane's **level schedule** (step levels, negation split points,
+per-level shape buckets with member index arrays) is built from its step
+list, and the flush's schedules merge into one **flush plan**: the
+per-round buckets of the whole flush, with flat gather/scatter indices into
+the stacked state, pre-summed ``S`` rows for trivial graphlets (their count
+coefficients *are* the injection rows built at plan time), and a
+flush-global batched-by-burst-length layout for the dynamic ``S`` fills.
+A flush then pays, per round: one ``take`` of the state rows, two batched
+matmuls, one fancy-indexed scatter — plus a handful of flush-wide stacked
+column sums.
 
 Window folds (phase 4) ride the same executor: :meth:`FoldExecutor
 .fold_windows` is the batched twin of :func:`repro_torch.core.engine.fold_panes`,
@@ -65,9 +62,7 @@ as one stacked launch set.
 
 from __future__ import annotations
 
-import itertools
-from collections import OrderedDict
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from time import perf_counter
 
 import numpy as np
@@ -78,9 +73,6 @@ from ..obs.metrics import OCCUPANCY_BUCKETS
 
 __all__ = ["FoldExecutor", "FoldJob", "FoldSchedule", "build_fold_schedule"]
 
-_sched_serial = itertools.count()
-
-
 def _is_group(step) -> bool:
     # duck-typed to avoid an import cycle with engine.py: group plans carry
     # ``g``; negation steps carry ``hits``
@@ -88,14 +80,14 @@ def _is_group(step) -> bool:
 
 
 # --------------------------------------------------------------------------
-# fold schedule: levels + per-level shape buckets (structural, cacheable)
+# fold schedule: levels + per-level shape buckets
 # --------------------------------------------------------------------------
 
 
 @dataclass
 class _BucketTpl:
     """Same-shape graphlets of one plan at one level, with the member-level
-    structural arrays the stacked fold needs (all plan-cacheable)."""
+    structural arrays the stacked fold needs."""
 
     b: int                 # exact burst length (0 for d == 0: ragged bucket)
     B_local: int
@@ -113,16 +105,13 @@ class _BucketTpl:
 
 @dataclass
 class FoldSchedule:
-    """Cached fold plan of one pane: levels, negation split points, and the
-    per-level shape buckets.  ``serial`` identifies the schedule in the
-    executor's flush-plan cache (ids are unsafe across plan-cache
-    evictions)."""
+    """Fold plan of one pane: levels, negation split points, and the
+    per-level shape buckets."""
 
     n_levels: int
     used: tuple            # unit indices folded per group: (0, *sum units)
     neg: list              # per level: [(step idx, hits)]
     buckets: list          # per level: [ _BucketTpl ]
-    serial: int = field(default_factory=lambda: next(_sched_serial))
 
 
 def _levelize(steps: list) -> list[int]:
@@ -209,7 +198,6 @@ class FoldJob:
     steps: list
     jobs: list             # executor handles parallel to ``steps``
     stats: object
-    host: object = None    # PanePlan carrying the cached schedule, or None
     M: np.ndarray | None = None
 
 
@@ -275,9 +263,7 @@ class _CtxState:
 @dataclass
 class _MergedBucket:
     """One flush-round stacked launch: same-shape graphlets of one level,
-    concatenated across every pending pane of the flush.  Everything here
-    except the coefficient arrays is structural, so the whole object is
-    cached per (ctx, schedule combination) — see ``FoldExecutor._plan``."""
+    concatenated across every pending pane of the flush."""
 
     B_local: int
     b: int                 # exact burst length (0 for d == 0: ragged)
@@ -292,7 +278,6 @@ class _MergedBucket:
     flat_er: tuple | None  # (rrow scatter rows, upd row mask) or None
     group_refs: list       # [(state row, step idx)] per group, in order
     div_g: np.ndarray | None      # [Ng, d] (d > 0 only)
-    W_buf: np.ndarray | None = None  # reused [Nm, B_local, C] (d == 0)
 
 
 @dataclass
@@ -305,9 +290,8 @@ class _Round:
 class _ScanProgram:
     """Device-resident operand set executing a whole *scannable* flush plan
     as one logical launch (see :func:`repro_torch.kernels.ops
-    .fold_rounds_scan` for the operand semantics).  Everything here but the
-    per-flush ``S`` block is structural, so it is built once per flush plan
-    and stays on device across flushes."""
+    .fold_rounds_scan` for the operand semantics), built with its flush
+    plan; only the ``S`` block is passed at launch."""
 
     Z0: object             # [J*k*R + 1, C] fresh state + scratch row
     PTM: object            # [rounds, NMAX, t]
@@ -326,12 +310,12 @@ class _ScanProgram:
 
 @dataclass
 class _FlushPlan:
-    """Cached merged fold plan of one (ctx, K-pane schedule combination).
+    """Merged fold plan of one (ctx, flush): the K panes' schedules.
 
     ``s_flat`` holds one ``[n_used, 1 + nu]`` row block per d == 0 graphlet
     of the whole flush; rows of trivial graphlets are pre-summed at build
-    time (their count coefficients are the plan-cached injection rows), the
-    rest are rewritten each flush by ``s_fill`` — one stacked column sum per
+    time (their count coefficients are the injection rows), the rest are
+    filled by ``s_fill`` — one stacked column sum per
     distinct burst length across *all* rounds.
 
     A *scannable* plan (every round: no negation steps, exactly one d == 0
@@ -362,44 +346,23 @@ class FoldExecutor:
     ``tests/test_fold_exec.py``).
     """
 
-    def __init__(self, backend: str = "cuda", flush_plan_cache: int = 64,
-                 obs=None, device=None):
+    def __init__(self, backend: str = "cuda", obs=None, device=None):
         self.backend = backend
         # None on the np backend; raises when a missing GPU is asked for
         self.device = ops.resolve_device(backend, device)
-        self.flush_plan_cache = int(flush_plan_cache)
         self.obs = obs
         self._pending: list[FoldJob] = []
-        self._plans: "OrderedDict[tuple, _FlushPlan]" = OrderedDict()
         self.flushes = 0
         self.launches = 0         # stacked group-fold launches (buckets)
         self.window_folds = 0     # stacked window-chain launches (buckets)
-        # flush-plan LRU traffic (the RunStats plan-cache counters' twin)
-        self.plan_hits = 0
-        self.plan_misses = 0
-        self.plan_evictions = 0
 
     def __len__(self) -> int:
         return len(self._pending)
 
-    def submit(self, proc, steps: list, jobs: list, stats,
-               host=None) -> FoldJob:
-        job = FoldJob(proc=proc, steps=steps, jobs=jobs, stats=stats,
-                      host=host)
+    def submit(self, proc, steps: list, jobs: list, stats) -> FoldJob:
+        job = FoldJob(proc=proc, steps=steps, jobs=jobs, stats=stats)
         self._pending.append(job)
         return job
-
-    # -- schedule resolution (plan-cache aware) --
-
-    @staticmethod
-    def _schedule_for(job: FoldJob) -> FoldSchedule:
-        host = job.host
-        if host is not None and getattr(host, "fold_schedule", None) is not None:
-            return host.fold_schedule
-        sched = build_fold_schedule(job.proc.ctx, job.steps)
-        if host is not None:
-            host.fold_schedule = sched
-        return sched
 
     # -- phase 3: the stacked finalize --
 
@@ -420,7 +383,8 @@ class FoldExecutor:
         # stacked state and its own merged flush plan.  With an obs attached
         # each group is three steps, each timed once: ``finalize.prep`` (the
         # flush plan and ``S``), ``finalize.rounds`` (the scan launch or the
-        # host rounds) and ``finalize.wait`` (the fetch and the scatter).
+        # host rounds) and ``finalize.wait`` (the fetch, the scatter and
+        # the flush plan's release).
         obs = self.obs
         by_ctx: dict[int, list[FoldJob]] = {}
         ctx_of: dict[int, object] = {}
@@ -432,7 +396,8 @@ class FoldExecutor:
         for cid, cjobs in by_ctx.items():
             t_prep = perf_counter() if obs is not None else 0.0
             ctx = ctx_of[cid]
-            fp = self._plan(cid, cjobs)
+            fp = self._build_plan(cjobs, [build_fold_schedule(ctx, j.steps)
+                                          for j in cjobs])
             # flush-global dynamic S fills: one stacked column sum per
             # distinct burst length across every round of the flush —
             # bitwise equal per slice to the per-group ``coef.sum(axis=0)``
@@ -455,8 +420,8 @@ class FoldExecutor:
                 t_rounds = perf_counter()
                 obs.step("finalize.prep", "finalize_prep_s", t_prep, t_rounds)
             if sp is not None:
-                # device-resident warm path: the whole fold chain is one
-                # device program and one host sync, independent of depth
+                # the whole fold chain is one device program and one host
+                # sync, independent of depth
                 Zf = self._run_scan(fp, S_flat)
             elif fp.fast is not None:
                 self._run_fast(st, fp, S_flat)
@@ -480,33 +445,12 @@ class FoldExecutor:
             MJ = st.assemble()
             for row, j in enumerate(cjobs):
                 j.M = MJ[row].copy()
+            del fp, sp, S_flat, st
             if obs is not None:
                 obs.step("finalize.wait", "finalize_wait_s", t_wait,
                          perf_counter())
 
-    # -- flush-plan construction (cached per schedule combination) --
-
-    def _plan(self, cid: int, cjobs: list[FoldJob]) -> _FlushPlan:
-        scheds = [self._schedule_for(j) for j in cjobs]
-        key = (cid,) + tuple(sc.serial for sc in scheds)
-        fp = self._plans.get(key)
-        if fp is not None:
-            self.plan_hits += 1
-            if self.obs is not None:
-                self.obs.count("fold_exec.flush_plan.hits")
-            self._plans.move_to_end(key)
-            return fp
-        self.plan_misses += 1
-        if self.obs is not None:
-            self.obs.count("fold_exec.flush_plan.misses")
-        fp = self._build_plan(cjobs, scheds)
-        self._plans[key] = fp
-        while len(self._plans) > self.flush_plan_cache:
-            self._plans.popitem(last=False)
-            self.plan_evictions += 1
-            if self.obs is not None:
-                self.obs.count("fold_exec.flush_plan.evictions")
-        return fp
+    # -- flush-plan construction --
 
     def _build_plan(self, cjobs: list[FoldJob],
                     scheds: list[FoldSchedule]) -> _FlushPlan:
@@ -693,7 +637,7 @@ class FoldExecutor:
                        None if em.all() else em)
 
         # global S rows for the d == 0 fast path: trivial graphlets' count
-        # coefficients are their cached injection rows, so their column sums
+        # coefficients are their injection rows, so their column sums
         # are pre-summed at build time; the rest register a dynamic fill.
         # ``gof_g`` expands to the member-by-unit row indices of ``s_flat``
         gof_g = gof
@@ -724,9 +668,9 @@ class FoldExecutor:
         """Launch the whole flush as one device program; returns the
         device-resident scanned state (one host sync fetches it).
 
-        Only the per-flush ``S`` block crosses to the device; every index
-        operand and the fresh state live there already.  Counts as a single
-        stacked launch however deep the fold chain is."""
+        The index operands and the fresh state went to the device with the
+        flush plan; the ``S`` block crosses with the launch.  Counts as a
+        single stacked launch however deep the fold chain is."""
         sp = fp.scan
         self.launches += 1
         if self.obs is not None:
@@ -759,9 +703,7 @@ class FoldExecutor:
                             OCCUPANCY_BUCKETS)
             n_used = len(mb.used)
             zm = Z2.take(flat_gq, axis=0)
-            W = mb.W_buf
-            if W is None:
-                W = mb.W_buf = np.empty((nm, mb.B_local, C))
+            W = np.empty((nm, mb.B_local, C))
             W[:, 0] = zm[:, 0]
             W[:, 1:1 + nu] = np.matmul(
                 mb.ptm[:, None, None, :],
@@ -789,11 +731,9 @@ class FoldExecutor:
         n_used = len(mb.used)
         zm = st.Z2.take(mb.flat_gq, axis=0)        # [Nm, R, C]
         nm = len(mb.flat_gq)
-        W = mb.W_buf
-        if W is None:
-            # d == 0 means B_local == 1 + nu: every row is overwritten
-            # below, so the buffer needs no zeroing and is reused
-            W = mb.W_buf = np.empty((nm, mb.B_local, C))
+        # d == 0 means B_local == 1 + nu: every row is overwritten below,
+        # so the buffer needs no zeroing
+        W = np.empty((nm, mb.B_local, C))
         W[:, 0] = zm[:, 0]
         if nu:
             W[:, 1:1 + nu] = np.matmul(

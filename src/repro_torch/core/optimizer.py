@@ -330,9 +330,8 @@ def divergence_patterns(d_rows: dict[int, np.ndarray],
     bitmask over ``candidates``), with multiplicity.  Any subset's snapshot
     union count is recoverable exactly (sum the counts of intersecting
     patterns), so decisions taken from patterns are bit-for-bit the
-    decisions taken from the raw rows.  This is the plan cache's quantized
-    benefit-model fingerprint: two panes with equal patterns (and equal
-    ``b``/``n``) provably take the same sharing decision."""
+    decisions taken from the raw rows: two bursts with equal patterns (and
+    equal ``b``/``n``) provably take the same sharing decision."""
     if not candidates:
         return ()
     D = np.stack([np.asarray(d_rows[q], dtype=bool) for q in candidates])
@@ -361,9 +360,9 @@ class _PolicyBase:
     # policy is handed ``d_rows=None``
     decision_static = False
     # True when the decision reads ``d_rows`` only through coverage-pattern
-    # counts (``divergence_patterns``): the engine's dynamic-policy plan-key
-    # fast path then recomputes the decision from a vectorized fingerprint
-    # via ``decide_patterns`` instead of the per-burst plan walk
+    # counts (``divergence_patterns``): the engine then decides edge-free
+    # bursts from the prologue's packed divergence codes via
+    # ``decide_patterns``, without building their divergence rows
     pattern_based = False
     # inputs/outputs of the most recent decision, read by the engine's
     # sharing-decision audit log (``repro_torch.obs.audit``); None for policies
@@ -372,9 +371,7 @@ class _PolicyBase:
     last_patterns = None
     # closed interval of the running event count ``n`` on which the most
     # recent decision is replay-stable (``None`` when unknown — non-memoized
-    # models).  Lets the engine memoize whole-pane decision walks: a pane's
-    # decisions replay verbatim while ``n`` stays inside the intersection of
-    # its bursts' intervals (see ``engine._dyn_fast_groups``).
+    # models); the v1 memo replays a decision on it.
     last_interval: tuple | None = None
 
     def decide(self, *, ctx, el, candidates, d_rows, b, n, stats) -> list[list[int]]:
@@ -432,8 +429,8 @@ class DynamicPolicy(_PolicyBase):
         """Decide from the compressed decision inputs: every snapshot union
         count the classification / refinement reads is recovered from the
         coverage-pattern multiset, so this is bit-for-bit :meth:`decide` —
-        the engine's plan-key fast path calls it straight off a vectorized
-        per-burst fingerprint (see ``engine._dyn_fast_groups``).
+        the engine calls it straight off a burst's slice of the prologue's
+        packed divergence codes (see ``PaneProcessor._decide``).
 
         The v1 model evaluates each decision in bulk (``_decide_v1``: one
         pattern matrix, every candidate move of the classification, the

@@ -40,12 +40,12 @@ horizon`` to make that replay exact.  (The pane-granular speculative path —
 emit optimistically, revise from stored pane matrices — lives in
 ``repro_torch.eventtime.revision``.)
 
-This wrapper is single-instance: one runtime, one plan cache, one epoch
-clock.  The multi-tenant tier above it lives in
-:mod:`repro_torch.shardsvc`: a router places tenants' groups on N shard
-workers, each an :class:`~repro_torch.overload.OverloadRuntime` of its
-own, and under ``none``/``global_fixed`` admission the N-shard results
-match the 1-shard run's.
+This wrapper is single-instance: one runtime, one epoch clock.  The
+multi-tenant tier above it lives in :mod:`repro_torch.shardsvc`: a router
+places tenants' groups on N shard workers, each an
+:class:`~repro_torch.overload.OverloadRuntime` of its own, and under
+``none``/``global_fixed`` admission the N-shard results match the 1-shard
+run's.
 
 The replay runtime runs on the service's ``backend``/``device``, as
 :class:`~repro_torch.core.engine.HamletRuntime` does: the default is the
@@ -193,11 +193,10 @@ class OutOfOrderBuffer:
 class HamletService:
     """Incremental HAMLET with dynamic workload changes at epoch boundaries.
 
-    ``micro_batch`` / ``plan_cache`` / ``fold_exec`` pass through to the
-    replay :class:`HamletRuntime` (cross-pane fused launches, pane-plan
-    memoization, the stacked finalize/fold executor — see
-    ``core/engine.py``); the runtime is reused while the workload is
-    unchanged so the plan caches stay warm across epochs.  ``obs`` attaches
+    ``micro_batch`` / ``fold_exec`` pass through to the replay
+    :class:`HamletRuntime` (cross-pane fused launches, the stacked
+    finalize/fold executor — see ``core/engine.py``); the runtime is reused
+    while the workload is unchanged.  ``obs`` attaches
     a :class:`repro_torch.obs.Observability` facade: it is threaded into the
     replay runtime (pane spans, metrics, sharing audit) and each epoch
     replay additionally gets an ``epoch`` span on the engine track.
@@ -207,8 +206,8 @@ class HamletService:
     def __init__(self, schema, queries: list[Query], policy=None,
                  lateness: int = 0, sharable_mode: str = "units",
                  overload=None, batch_exec: bool = True, eventtime=None,
-                 micro_batch: int = 1, plan_cache: bool = True,
-                 fold_exec: bool = True, obs=None, backend: str = "cuda",
+                 micro_batch: int = 1, fold_exec: bool = True, obs=None,
+                 backend: str = "cuda",
                  device=None):
         from .events import pane_size_for
 
@@ -221,11 +220,10 @@ class HamletService:
         self.policy = policy
         self.batch_exec = batch_exec
         self.micro_batch = max(1, int(micro_batch))
-        self.plan_cache = plan_cache
         self.fold_exec = fold_exec
         # the replay runtime is reused while the workload is unchanged, so
-        # the per-component plan caches (and the executor's staging buffers)
-        # stay warm across epochs; query add/remove rebuilds it
+        # the executor's staging buffers stay warm across epochs; query
+        # add/remove rebuilds it
         self._rt: HamletRuntime | None = None
         self._rt_stale = True
         self._queries: dict[str, Query] = {q.name: q for q in queries}
@@ -479,7 +477,6 @@ class HamletService:
                                      device=self.device,
                                      batch_exec=self.batch_exec,
                                      micro_batch=self.micro_batch,
-                                     plan_cache=self.plan_cache,
                                      fold_exec=self.fold_exec,
                                      obs=self.obs)
             self._rt_stale = False

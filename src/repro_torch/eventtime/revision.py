@@ -142,15 +142,14 @@ class EventTimeRuntime:
     def __init__(self, workload: Workload, config: EventTimeConfig,
                  policy=None, backend: str = "cuda", batch_exec: bool = True,
                  accountant=None, micro_batch: int = 1,
-                 plan_cache: bool = True, fold_exec: bool = True, obs=None,
-                 device=None):
+                 fold_exec: bool = True, obs=None, device=None):
         self.workload = workload
         self.config = config
         self.obs = obs
         self.micro_batch = max(1, int(micro_batch))
         self.rt = HamletRuntime(workload, policy=policy, backend=backend,
-                                batch_exec=batch_exec, plan_cache=plan_cache,
-                                fold_exec=fold_exec, obs=obs, device=device)
+                                batch_exec=batch_exec, fold_exec=fold_exec,
+                                obs=obs, device=device)
         self.pane = self.rt.pane
         self.stats = self.rt.stats
         self.metrics = EventTimeMetrics()
@@ -275,8 +274,7 @@ class EventTimeRuntime:
     def _group_procs(self, g: int) -> list[PaneProcessor]:
         if g not in self._procs:
             rt = self.rt
-            # shared executor + per-component plan caches: a pane shape
-            # learned on one group partition is reused on all of them
+            # every group partition shares the runtime's executors
             self._procs[g] = [rt.make_processor(ci)
                               for ci in range(len(rt.ctxs))]
             self._panes[g] = {}

@@ -228,7 +228,7 @@ def fold_stacked(u0, Ms, *, backend: str = "np", device=None):
 
 
 def fold_rounds_scan(Z0, S, PTM, GQ, SIDX, SC, ER, *, nu, t, n_used):
-    """Whole warm fold-flush as one device program (see fold_exec.py).
+    """A whole fold flush as one device program (see fold_exec.py).
 
     Executes every d == 0 fold round of a flush on the device holding the
     fused flat state ``Z0 [J*k*R + 1, C]`` (row ``J*k*R`` is a scratch row

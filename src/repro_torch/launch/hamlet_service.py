@@ -357,7 +357,6 @@ def run_sharded(args) -> dict:
         print(f"  shard {s['shard']}: busy={s['busy_s']:.3f}s "
               f"panes={ov['panes']} admitted={ov['admitted']} "
               f"p99_proc={ov['p99_proc_ms']:.2f} ms "
-              f"cache_hit={s['plan_cache']['hit_rate']:.2f} "
               f"launches={s['executor_launches']}")
     for name, rep in sorted(svc.error_report().items()):
         print(f"  {name}: shed kleene={rep.shed_kleene} "

@@ -2,16 +2,15 @@
 
 Records every optimizer share / no-share decision the engine makes while
 planning a pane: the candidate queries, the decided group partition
-(*verbatim* the ``groups_sig`` tuple that enters the pane-plan cache
-key), the benefit delta the cost model computed, the coverage pattern the
-decision was based on, and whether the decision *flipped* the cached plan
-key relative to the previous pane at the same (component, Kleene-type)
-site — the paper's Fig. 12 adaptivity story, inspectable on any run.
+(*verbatim* the groups the pane's steps are built from), the benefit
+delta the cost model computed, the coverage pattern the decision was
+based on, and whether the decision *flipped* relative to the previous
+pane at the same (component, Kleene-type) site — the paper's Fig. 12
+adaptivity story, inspectable on any run.
 
 Alongside the per-decision entries, :meth:`SharingAuditLog.note_pane`
-captures the full decided-groups portion of each pane's plan-cache key so
-a run's audit log can be replayed against the exact key objects the plan
-cache saw (see ``tests/test_obs.py``).
+captures each pane's decided groups, burst by burst, so a run's audit log
+can be compared pane for pane (see ``tests/test_obs.py``).
 """
 
 from __future__ import annotations
@@ -29,7 +28,7 @@ class SharingDecision:
     comp: int                # component ordinal within the runtime
     el: int                  # local Kleene event-type index
     candidates: tuple        # query positions eligible to share
-    decided: tuple           # decided groups — the plan-cache key object
+    decided: tuple           # decided groups, as the steps are built
     shared: bool             # any group of >= 2 queries?
     flipped: bool            # differs from previous decision at this site?
     benefit: float | None = None   # cost-model benefit delta (None: static)
@@ -91,8 +90,9 @@ class SharingAuditLog:
             b=int(b), n=int(n)))
 
     def note_pane(self, pane, groups: tuple, comp: int = 0) -> None:
-        """Record the decided-groups portion of a pane's plan-cache key,
-        keyed ``(comp, group, pane_t0)`` (components plan independently)."""
+        """Record a pane's decided groups (one entry a burst, None for a
+        burst no query reads), keyed ``(comp, group, pane_t0)``
+        (components plan independently)."""
         if pane is None:
             return
         key = (comp,) + tuple(pane)
@@ -114,8 +114,7 @@ class SharingAuditLog:
         return out
 
     def pane_key_groups(self) -> dict:
-        """(comp, group, pane_t0) -> decided-groups tuple as assembled
-        into the pane's plan-cache key."""
+        """(comp, group, pane_t0) -> the pane's decided-groups tuple."""
         return dict(self._pane_groups)
 
     def summary(self) -> dict:

@@ -247,11 +247,6 @@ class Observability:
         if self.tracer.enabled:
             self.tracer.instant(stage, key=key, cat="lifecycle", args=args)
 
-    def cache_event(self, hit: bool, key=None) -> None:
-        if self.tracer.enabled:
-            self.tracer.instant("plan_cache_hit" if hit
-                                else "plan_cache_miss", key=key, cat="cache")
-
     def span(self, name, cat="span", args=None):
         return self.tracer.span(name, cat, args)
 
@@ -340,16 +335,7 @@ class Observability:
             if fe is not None:
                 out["executors"]["fold"] = {
                     "flushes": fe.flushes, "launches": fe.launches,
-                    "window_folds": fe.window_folds,
-                    "flush_plan_hits": fe.plan_hits,
-                    "flush_plan_misses": fe.plan_misses,
-                    "flush_plan_evictions": fe.plan_evictions}
-                for k in ("hits", "misses", "evictions"):
-                    # sync the live series to the executor's lifetime total
-                    # (they can lag when obs was attached mid-stream)
-                    c = self.registry.counter(f"fold_exec.flush_plan.{k}")
-                    c.value = getattr(fe, f"plan_{k}")
-            out["plan_cache"] = runtime.plan_cache_stats()
+                    "window_folds": fe.window_folds}
         return out
 
 

@@ -19,7 +19,7 @@ format so the output loads directly in Perfetto / ``chrome://tracing``:
   ``(group, pane_t0)``: at K = 1 the ``X`` phase spans of the pane (and
   its step spans), the ``fold`` phase at any K, and ``i`` instant events
   for lifecycle marks (ingest -> seal -> plan -> execute -> emit ->
-  revise / evict) and plan-cache lookups.
+  revise / evict).
 
 Timestamps are microseconds relative to the tracer's origin, taken from
 the *same* ``perf_counter`` readings the engine already uses for

@@ -47,8 +47,8 @@ class OverloadConfig:
                        and execute as one fused launch set per K panes (the
                        controller then observes amortized per-pane time once
                        per micro-batch); 1 = exact per-pane control loop
-    plan_cache         enable the engine's pane-plan memoization (see
-                       ``core/plan_cache.py``)
+    plan_cache         accepted and ignored: planning keeps no memo of
+                       whole panes, and the benchmark's drivers still set it
     fold_exec          enable the stacked finalize/fold executor (see
                        ``core/fold_exec.py``); off = the sequential
                        per-graphlet replay (bitwise-identical results)

@@ -131,7 +131,6 @@ class _GroupDriver:
         self.rt = rt
         self.group_key = group_key
         # shed and admitted panes alike reuse the runtime's batched executor
-        # and per-component plan caches
         self.procs = [rt.make_processor(ci) for ci in range(len(rt.ctxs))]
         # insts[component][member] : {window_start: _Instance}
         self.insts: list[list[dict[int, _Instance]]] = []
@@ -215,7 +214,6 @@ class OverloadRuntime:
         self.obs = obs
         self.rt = HamletRuntime(workload, policy=policy, backend=backend,
                                 batch_exec=batch_exec,
-                                plan_cache=config.plan_cache,
                                 fold_exec=config.fold_exec, obs=obs,
                                 device=device)
         self.pane = self.rt.pane

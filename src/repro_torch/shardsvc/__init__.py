@@ -1,7 +1,7 @@
 """Sharded multi-tenant service tier over the HAMLET pane dataplane.
 
 Partitions tenants (contiguous group ranges) across N shard workers, each
-owning an unchanged single-process stack — ``HamletRuntime`` + plan cache +
+owning an unchanged single-process stack — ``HamletRuntime`` +
 ``PaneMicroBatcher`` + overload PID loop + error accountant — and adds the
 three things group-independence does not give for free:
 

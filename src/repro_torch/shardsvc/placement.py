@@ -17,7 +17,7 @@ hash.  Two properties matter here:
 * **Stability under change** — moving one hot tenant is an *override*, not
   a rehash: the table records ``group -> shard`` exceptions and bumps its
   version, leaving every other group's mapping (and therefore every other
-  shard's plan-cache and window state) untouched.  Likewise growing the
+  shard's window state) untouched.  Likewise growing the
   ring to ``n+1`` shards remaps only ~1/(n+1) of the keys.
 
 ``shard_of_groups`` is the hot-path form: vectorized over an arrival

@@ -9,7 +9,7 @@ Topology (one process, N independent shard states):
                  router ErrorAccountant        ShardWorker[0..N-1], each:
                                                  ReorderBuffer(RoutedFrontier)
                                                  OverloadRuntime (own
-                                                   HamletRuntime, plan cache,
+                                                   HamletRuntime,
                                                    PaneMicroBatcher, PID loop,
                                                    ErrorAccountant)
                            ^                               |
@@ -40,8 +40,8 @@ admission, routing, time, and the merged read side:
   routing to the source shard, the two involved shards cap their pane
   clocks at the boundary (a barrier *only* for the pair, *only* while the
   move is pending), and at the barrier the group's open-window instances
-  are handed to the target shard.  Untouched shards never stall and keep
-  their plan caches warm; the handoff is exact for in-flight windows.
+  are handed to the target shard.  Untouched shards never stall; the
+  handoff is exact for in-flight windows.
 
 **Differential contract**: with ``none``/``global_fixed`` admission, the
 results of an N-shard service are a permutation-stable bitwise match of
@@ -361,7 +361,6 @@ class ShardWorker:
             "t_now": self.t_now,
             "overload": self.rt.metrics.summary(),
             "controller": self.rt.controller.state(),
-            "plan_cache": self.rt.rt.plan_cache_stats(),
             "late": self.late_total,
             "expired": self.expired_total,
             "ingress_dropped": self.rt.queue.dropped,
@@ -648,7 +647,7 @@ class ShardedHamletService:
         driver's instances are precisely the group's open windows at the
         boundary — and a fresh driver on the target at ``t_now=boundary``
         with those instances continues them bit-for-bit.  Shards not party
-        to the move were never paused; their plan caches stay warm.  The
+        to the move were never paused.  The
         instances are host numpy state (each open window's ``u`` vector),
         so they change runtimes as they are: no tensor moves.  The flushes
         run on the caller's thread, with the shards' device made current."""

@@ -62,8 +62,7 @@ def _case(name, districts=2, density=200):
 
 def _runtime(wl, K, obs=None):
     return HamletRuntime(wl, policy=DynamicPolicy(), backend="np",
-                         micro_batch=K, plan_cache=True, fold_exec=True,
-                         obs=obs)
+                         micro_batch=K, fold_exec=True, obs=obs)
 
 
 def _replay(name, K, obs=None):

@@ -149,8 +149,7 @@ def test_evaluate_equals_window_direct():
 
 def _run(wl, s, backend, device, K, **kw):
     rt = HamletRuntime(wl, policy=DynamicPolicy(), backend=backend,
-                       device=device, micro_batch=K, plan_cache=True,
-                       fold_exec=True, **kw)
+                       device=device, micro_batch=K, fold_exec=True, **kw)
     got = rt.run(EventBatch(wl.schema, s.type_id, s.time, s.attrs, s.group),
                  120)
     return rt, got
@@ -213,16 +212,14 @@ def _ridesharing():
 COUNTERS = ("edge_mask_cells", "shared_rows", "snapshot_rows")
 
 
-def _counters(wl, s, plan_cache):
-    """The three counters over two runs of one stream (the second hits
-    the plan cache where one is attached), and the cache hits."""
+def _counters(wl, s, runs):
+    """The three counters over ``runs`` runs of one stream."""
     rt = HamletRuntime(wl, policy=DynamicPolicy(), backend="np",
-                       micro_batch=4, plan_cache=plan_cache)
+                       micro_batch=4)
     b = EventBatch(wl.schema, s.type_id, s.time, s.attrs, s.group)
-    rt.run(b, 120)
-    rt.run(b, 120)
-    return ({f: getattr(rt.stats, f) for f in COUNTERS},
-            rt.stats.plan_cache_hits)
+    for _ in range(runs):
+        rt.run(b, 120)
+    return {f: getattr(rt.stats, f) for f in COUNTERS}
 
 
 @pytest.mark.parametrize("workload", ["stock-trends", "ridesharing-w1"])
@@ -230,12 +227,12 @@ def test_snapshot_counters(workload):
     """Positive on the stock workload (every Sell burst builds 20 edge
     masks of b^2 cells); on ridesharing's edge-free one no mask is built,
     while its per-event predicates still give shared rows snapshots.  A
-    plan-cache hit replays the rows it skipped counting."""
+    stream run twice counts exactly twice what it counts once."""
     wl, s = ((queries.workload(CFG), _stream(77))
              if workload == "stock-trends" else _ridesharing())
-    got, hits = _counters(wl, s, True)
-    want, _ = _counters(wl, s, False)
-    assert hits > 0 and got == want
+    once = _counters(wl, s, 1)
+    got = _counters(wl, s, 2)
+    assert got == {f: 2 * v for f, v in once.items()}
     assert 0 < got["snapshot_rows"] < got["shared_rows"]
     assert (got["edge_mask_cells"] > 0) == (workload == "stock-trends")
 
