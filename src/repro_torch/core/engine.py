@@ -286,6 +286,9 @@ class RunStats:
     split_bursts: int = 0
     graphlets: int = 0
     shared_graphlets: int = 0
+    # single-query graphlets, planned a burst at a time by the stacked
+    # pass (``PaneProcessor._plan_singles``)
+    stacked_graphlets: int = 0
     snapshots_created: int = 0
     snapshots_propagated: int = 0
     propagate_cells: int = 0      # total solved cells (rows x basis cols)
@@ -422,7 +425,8 @@ class _GroupPlan:
     B_local: int
     z_ids: dict
     dense: bool
-    em: np.ndarray | None         # in-burst adjacency (None when dense)
+    em: np.ndarray | None         # in-burst adjacency (None when dense,
+                                  # and for a stacked trivial plan)
     start_q0: bool
     sum_units: list               # [(ui, injection values | None)]
     base_c: np.ndarray | None = None  # count-round injection rows
@@ -763,7 +767,10 @@ class PaneProcessor:
 
     def _build_steps(self, plan_bursts: list, stats: RunStats) -> list:
         """Construct the step list: group plans with divergence layout,
-        adjacency, z columns, and count-round injection rows."""
+        adjacency, z columns, and count-round injection rows.  A burst's
+        single-query groups are planned together by :meth:`_plan_singles`,
+        its shared groups one at a time by :meth:`_plan_group`; the steps
+        keep the groups' order."""
         steps: list = []
         for hits, burst in plan_bursts:
             if hits:
@@ -772,15 +779,80 @@ class PaneProcessor:
                 continue
             tid, el, attrs, b, q_pos, mvec, epm, groups = burst
             qpos_index = {qi: i for i, qi in enumerate(q_pos)}
+            qs = [g[0] for g in groups if len(g) == 1]
+            singles = iter(self._plan_singles(
+                qs, [qpos_index[qi] for qi in qs], el, tid, attrs, b, mvec,
+                epm))
             for g in groups:
                 if len(g) >= 2:
                     stats.shared_bursts += 1
                     stats.shared_graphlets += 1
                 stats.graphlets += 1
+                if len(g) == 1:
+                    stats.stacked_graphlets += 1
+                    plan = next(singles)
+                    if plan is not None:
+                        steps.append(plan)
+                    continue
                 rows = [qpos_index[qi] for qi in g]
                 self._plan_group(g, el, tid, attrs, b, mvec[rows],
                                  [epm[i] for i in rows], steps, stats)
         return steps
+
+    def _plan_singles(self, qs: list, rows: list, el: int, type_id: int,
+                      attrs: np.ndarray, b: int, mvec: np.ndarray,
+                      epm: list) -> list:
+        """The plans of one burst's single-query groups (queries ``qs``,
+        rows ``rows`` of ``mvec`` and ``epm``) in one stacked pass, each
+        field equal to :meth:`_plan_group`'s on the group alone; ``None``
+        where the query matches no event of the burst.
+
+        A lone query has no divergent row, so its plan follows from its
+        match row: live where it matches, dead elsewhere, no z column.
+        The count injection rows are slices of one ``[s, b, 1 + nu]``
+        array, and the sum units and the strictly-lower template are built
+        once a burst.  A non-Kleene (trivial) plan gets no adjacency:
+        submit passes its injection rows through as its result."""
+        if not qs:
+            return []
+        ctx = self.ctx
+        nu = ctx.nu
+        M = mvec[rows]                                   # [s, b]
+        start = ctx.start_flag[qs, el]
+        kle = ctx.kleene_flag[qs, el].tolist()
+        hit = M.any(axis=1).tolist()
+        full = M.all(axis=1).tolist()
+        base = np.zeros((len(qs), b, 1 + nu))
+        base[:, :, 1] = M                                # x_count entry
+        base[:, :, 0] = M & start[:, None]               # gate entry
+        dead = ~M
+        div = np.zeros(b, dtype=bool)
+        div_rows = np.nonzero(div)[0]
+        sum_units = self._sum_units_for(type_id, attrs, b)
+        fits = b <= DENSE_B_MAX
+        lower = None
+        plans: list = []
+        for k, qi in enumerate(qs):
+            if not hit[k]:
+                plans.append(None)
+                continue
+            e = epm[rows[k]]
+            kleene = kle[k]
+            dense = kleene and e is None and full[k] and fits
+            em = None
+            if kleene and not dense:
+                if lower is None:
+                    lower = np.tril(np.ones((b, b)), k=-1)
+                em = lower * M[k][:, None]
+                if e is not None:
+                    em *= np.tril(e, k=-1)
+            plans.append(_GroupPlan(
+                g=[qi], el=el, type_id=type_id, attrs=attrs, b=b,
+                mvec=M[k:k + 1], epm=[e], shared=False, div=div,
+                div_rows=div_rows, live=M[k], dead=dead[k], B_local=1 + nu,
+                z_ids={}, dense=dense, em=em, start_q0=bool(start[k]),
+                sum_units=sum_units, base_c=base[k], trivial=not kleene))
+        return plans
 
     def _sum_units_for(self, type_id: int, attrs: np.ndarray, b: int) -> list:
         """Per-burst sum-unit injection values (fresh attribute data)."""

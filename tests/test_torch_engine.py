@@ -38,10 +38,12 @@ from repro.launch.hamlet_service import \
     ridesharing_workload as ref_ridesharing_workload
 from repro.streams import generator as RG
 from repro_torch import interop
-from repro_torch.core.engine import HamletRuntime, PaneMicroBatcher, RunStats
+from repro_torch.core.engine import (HamletRuntime, PaneMicroBatcher,
+                                     PaneProcessor, RunStats, _NegStep)
 from repro_torch.core.engine import vals_equal
 from repro_torch.core.fold_exec import FoldExecutor, build_fold_schedule
-from repro_torch.core.optimizer import DynamicPolicy
+from repro_torch.core.optimizer import DynamicPolicy, NeverShare
+from repro_torch.kernels.ops import DENSE_B_MAX
 from repro_torch.obs import Observability
 from repro_torch.streams import generator as PG
 
@@ -381,3 +383,197 @@ def test_minmax_matches_reference(K, backend):
             minmax_seen += sum(math.isfinite(v) for a, v in w.items()
                                if a.startswith(("MIN", "MAX")))
     assert minmax_seen > 0
+
+
+# ------------------------------------------- stacked single-query plans
+
+
+def _oracle_steps(proc, plan_bursts, stats):
+    """The step list as ``_plan_group`` builds it, one call a group."""
+    steps = []
+    for hits, burst in plan_bursts:
+        if hits:
+            steps.append(_NegStep(hits))
+        if burst is None:
+            continue
+        tid, el, attrs, b, q_pos, mvec, epm, groups = burst
+        for g in groups:
+            if len(g) >= 2:
+                stats.shared_bursts += 1
+                stats.shared_graphlets += 1
+            stats.graphlets += 1
+            rows = [q_pos.index(qi) for qi in g]
+            proc._plan_group(g, el, tid, attrs, b, mvec[rows],
+                             [epm[i] for i in rows], steps, stats)
+    return steps
+
+
+def _same_array(a, b):
+    return (a is None and b is None) or (
+        a is not None and b is not None and a.dtype == b.dtype
+        and a.shape == b.shape and a.tobytes() == b.tobytes())
+
+
+PLAN_ARRAYS = ("mvec", "div", "div_rows", "live", "dead", "base_c")
+PLAN_VALUES = ("g", "el", "type_id", "b", "shared", "B_local", "z_ids",
+               "dense", "start_q0", "trivial")
+
+
+def _assert_plan_equal(got, want, tag):
+    for f in PLAN_VALUES:
+        assert getattr(got, f) == getattr(want, f), (tag, f)
+    for f in PLAN_ARRAYS:
+        assert _same_array(getattr(got, f), getattr(want, f)), (tag, f)
+    assert got.attrs is want.attrs, tag
+    assert len(got.epm) == len(want.epm), tag
+    assert all(_same_array(a, b) for a, b in zip(got.epm, want.epm)), tag
+    assert [u for u, _ in got.sum_units] == [u for u, _ in want.sum_units]
+    assert all(_same_array(a, b) for (_, a), (_, b)
+               in zip(got.sum_units, want.sum_units)), tag
+    if got.trivial:
+        # nothing reads a trivial plan's adjacency: the oracle's is zeros
+        assert got.em is None and not want.em.any(), tag
+    else:
+        assert _same_array(got.em, want.em), tag
+
+
+def _plan_kinds(ctx, plan_bursts):
+    """What the single-query groups of these bursts exercise."""
+    kinds = set()
+    for _, burst in plan_bursts:
+        if burst is None:
+            continue
+        tid, el, attrs, b, q_pos, mvec, epm, groups = burst
+        singles = [q_pos.index(g[0]) for g in groups if len(g) == 1]
+        if singles and len(singles) < len(groups):
+            kinds.add("mixed")
+        if singles and not mvec[singles].any():
+            kinds.add("unmatched burst")
+        for j in singles:
+            qi = q_pos[j]
+            if not mvec[j].any():
+                kinds.add("unmatched")
+            elif epm[j] is not None:
+                kinds.add("edge-masked")
+            elif not ctx.kleene_flag[qi, el]:
+                kinds.add("trivial")
+            elif b > DENSE_B_MAX:
+                kinds.add("kleene b > DENSE_B_MAX")
+            elif mvec[j].all():
+                kinds.add("dense")
+            else:
+                kinds.add("masked")
+    return kinds
+
+
+def _hbench_case(name):
+    """A benchmark configuration (``hbench/configs/``) over one small
+    segment of its stream, under the benchmark's policy."""
+    import json
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from hbench import drivers
+
+    cfg = json.loads((root / "hbench" / "configs" / f"{name}.json")
+                     .read_text())
+    cfg["events_per_group_minute"] = 200
+    mix = {"districts": 2, "micro_batch": 16}
+    wl = drivers._workload(cfg)
+    t_end = drivers.segment_ticks(cfg, mix)
+    batch = drivers._batch(wl, drivers.cell_stream(cfg, mix, 2**31 + 3, 0,
+                                                   t_end / 60))
+    return wl, batch, t_end, DynamicPolicy()
+
+
+def _chain_case(pred):
+    """``chain_wl`` never shared, over B bursts of 600 and 3 events (both
+    sides of ``DENSE_B_MAX``); with ``pred`` both queries take only
+    ``v > 5``, which no event meets."""
+    from repro.core.query import Pred
+
+    preds = {"B": [Pred("v", ">", 5.0)]} if pred else None
+    wl = Workload(SCHEMA, [
+        Query("q1", Seq(A, Kleene(B)), aggs=(count_star(), agg_sum("B", "v")),
+              preds=preds, within=40, slide=20),
+        Query("q2", Kleene(B), preds=preds, within=40, slide=20),
+    ])
+    types = np.array([0] + [1] * 600 + [0] + [1] * 3 + [0], dtype=np.int32)
+    time = np.minimum(np.arange(1, len(types) + 1), 19)
+    vals = np.random.default_rng(4).uniform(0.5, 2.0, (len(types), 1))
+    return (port_wl(wl), port_stream(RefBatch(SCHEMA, types, time, vals)),
+            40, NeverShare())
+
+
+STACKED_CASES = {
+    "smarthome-w1": ({"trivial", "unmatched"}, _hbench_case),
+    "ridesharing-w1": ({"trivial", "masked", "mixed"}, _hbench_case),
+    "stock-trends": ({"trivial", "edge-masked", "mixed"}, _hbench_case),
+    "chain": ({"trivial", "dense", "kleene b > DENSE_B_MAX"},
+              lambda _: _chain_case(False)),
+    "chain-unmatched": ({"trivial", "unmatched burst"},
+                        lambda _: _chain_case(True)),
+}
+
+
+@pytest.mark.parametrize("case", list(STACKED_CASES))
+def test_stacked_singles_equal_plan_group(case, monkeypatch):
+    """Each pane's step list, with a burst's single-query groups planned in
+    one stacked pass, equals the one ``_plan_group`` builds a group at a
+    time: the same steps in the same order, each plan field for field
+    (a trivial plan's unread adjacency aside), and the same ``RunStats``
+    increments; ``stacked_graphlets`` counts the single-query groups."""
+    want_kinds, make = STACKED_CASES[case]
+    wl, batch, t_end, policy = make(case)
+    seen = []
+    build = PaneProcessor._build_steps
+
+    def capture(self, plan_bursts, stats):
+        seen.append((self, plan_bursts))
+        return build(self, plan_bursts, stats)
+
+    monkeypatch.setattr(PaneProcessor, "_build_steps", capture)
+    HamletRuntime(wl, policy=policy, backend="np", micro_batch=4).run(
+        batch, t_end)
+    assert seen
+    kinds = set()
+    for n, (proc, plan_bursts) in enumerate(seen):
+        kinds |= _plan_kinds(proc.ctx, plan_bursts)
+        got_stats, want_stats = RunStats(), RunStats()
+        got = build(proc, plan_bursts, got_stats)
+        want = _oracle_steps(proc, plan_bursts, want_stats)
+        assert [type(s) for s in got] == [type(s) for s in want], (case, n)
+        for i, (a, w) in enumerate(zip(got, want)):
+            if isinstance(a, _NegStep):
+                assert a.hits == w.hits, (case, n, i)
+            else:
+                _assert_plan_equal(a, w, (case, n, i))
+        singles = sum(len(g) == 1 for _, burst in plan_bursts
+                      if burst is not None for g in burst[-1])
+        assert got_stats.stacked_graphlets == singles, (case, n)
+        got_stats.stacked_graphlets = 0
+        assert got_stats == want_stats, (case, n)
+    assert want_kinds <= kinds, (case, kinds)
+
+
+def test_stacked_graphlets_counted_without_observability(monkeypatch):
+    """``RunStats.stacked_graphlets`` is counted with no ``Observability``
+    attached, and equals the single-query groups the plan walk built."""
+    wl, stream, t_end = named_case("ridesharing")
+    singles = []
+    build = PaneProcessor._build_steps
+
+    def capture(self, plan_bursts, stats):
+        singles.append(sum(len(g) == 1 for _, burst in plan_bursts
+                           if burst is not None for g in burst[-1]))
+        return build(self, plan_bursts, stats)
+
+    monkeypatch.setattr(PaneProcessor, "_build_steps", capture)
+    rt = HamletRuntime(port_wl(wl), micro_batch=4, **DEV)
+    rt.run(port_stream(stream), t_end)
+    s = rt.stats
+    assert s.stacked_graphlets == sum(singles) > 0
+    assert s.stacked_graphlets == s.graphlets - s.shared_graphlets

@@ -234,13 +234,14 @@ def test_collect_keys_match_reference():
     for k in ("executors", "audit", "trace"):
         assert got[k].keys() == want[k].keys(), k
     # the port's step clocks, its count of fresh sharing decisions, its
-    # event-level snapshot counters and its count of flushes drained with
-    # the collector held off are its own RunStats fields
+    # event-level snapshot counters, its count of flushes drained with
+    # the collector held off and its count of graphlets the stacked pass
+    # planned are its own RunStats fields
     assert ref_only_engine <= want["engine"].keys()
     assert got["engine"].keys() == \
         (want["engine"].keys() - ref_only_engine) | set(RunStats.STEP_FIELDS) \
         | {"decide_evals", "edge_mask_cells", "shared_rows", "snapshot_rows",
-           "gc_held_flushes"}
+           "gc_held_flushes", "stacked_graphlets"}
     assert "fold_exec.flush_plan.misses" in want["metrics"]
     assert got["metrics"].keys() == want["metrics"].keys() - ref_only_metrics
     assert got["audit"] == want["audit"]
