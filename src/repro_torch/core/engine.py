@@ -302,6 +302,13 @@ class RunStats:
     edge_mask_cells: int = 0
     shared_rows: int = 0
     snapshot_rows: int = 0
+    # negation (Sec. 5): gates applied to a query's state rows, one per
+    # (pane, hit) by the fold executor's ``apply_neg`` or the sequential
+    # finalize; and the fold rounds (levels) of each pane's schedule in
+    # the flush plans, with those of them that carry a negation gate
+    neg_gates: int = 0
+    neg_rounds: int = 0
+    fold_rounds: int = 0
     panes: int = 0
     windows_emitted: int = 0
     # four-phase wall-clock split (seconds) — the engine times itself so
@@ -315,6 +322,7 @@ class RunStats:
     plan_prologue_s: float = 0.0
     plan_decide_s: float = 0.0
     plan_edge_s: float = 0.0
+    plan_neg_s: float = 0.0
     plan_build_s: float = 0.0
     execute_stage_s: float = 0.0
     execute_launch_s: float = 0.0
@@ -344,12 +352,13 @@ class RunStats:
         "events", "bursts", "decisions", "panes", "windows_emitted")
 
     # The step clocks, read only with an Observability attached (all stay
-    # 0 without one).  Plan's four lie inside ``plan_s`` (``plan_edge_s``:
-    # the burst walk's edge masks); what they leave of it is the walk's
-    # negation hits and match slices.  Execute's three tile ``execute_s``
-    # (the submits' injection rows and the executor's bucketing and
-    # stacking; the ``ops.propagate*`` calls with their host-to-device
-    # copies; the fetch and unpacking), as finalize's tile ``finalize_s``
+    # 0 without one).  Plan's five lie inside ``plan_s`` (``plan_edge_s``:
+    # the burst walk's edge masks; ``plan_neg_s``: its negation hits and
+    # their ``_NegStep``); what they leave of it is the walk's match
+    # slices.  Execute's three tile ``execute_s`` (the submits' injection
+    # rows and the executor's bucketing and stacking; the
+    # ``ops.propagate*`` calls with their host-to-device copies; the fetch
+    # and unpacking), as finalize's tile ``finalize_s``
     # with the fold executor (flush plan and ``S``; the scan launch or host
     # rounds; the fetch and scatter), but not its sequential replay.
     # ``ingress_s`` / ``admit_s`` are the streaming layer's ``offer`` and
@@ -357,9 +366,9 @@ class RunStats:
     # collector's pauses of the process, ``gc_full_collections`` those of
     # its full (generation-2) passes.
     STEP_FIELDS: ClassVar[tuple[str, ...]] = (
-        "plan_prologue_s", "plan_decide_s", "plan_edge_s", "plan_build_s",
-        "execute_stage_s", "execute_launch_s", "execute_wait_s",
-        "execute_h2d_bytes", "execute_d2h_bytes",
+        "plan_prologue_s", "plan_decide_s", "plan_edge_s", "plan_neg_s",
+        "plan_build_s", "execute_stage_s", "execute_launch_s",
+        "execute_wait_s", "execute_h2d_bytes", "execute_d2h_bytes",
         "finalize_prep_s", "finalize_rounds_s", "finalize_wait_s",
         "ingress_s", "admit_s", "gc_s", "gc_collections",
         "gc_full_collections")
@@ -657,10 +666,16 @@ class PaneProcessor:
             cursor[tid] = c + b
 
             # negative-type handling (Sec. 5): applies per query with a rule
-            hits = None
+            neg = None
             if tid in neg_type:
+                t_n = perf_counter() if obs is not None else 0.0
                 hits = [(qi, rule) for qi, rule, m in neg_type[tid]
-                        if m[c:c + b].any()] or None
+                        if m[c:c + b].any()]
+                if hits:
+                    neg = _NegStep(hits)
+                if obs is not None:
+                    obs.step("plan.neg", "plan_neg_s", t_n, perf_counter(),
+                             stats)
 
             burst = None
             el = ctx.local.get(tid)
@@ -681,23 +696,23 @@ class PaneProcessor:
                 burst = (tid, el, attrs, b, q_pos,
                          pro.mv_type[tid][:, c:c + b], epm,
                          None if codes is None else codes[c:c + b])
-            bursts.append((hits, burst))
+            bursts.append((neg, burst))
 
         # sharing decisions (Sec. 4), decided fresh on every pane: the
         # benefit model tracks the running event count
         t_d = perf_counter() if obs is not None else 0.0
         plan_bursts: list = []
         key_groups: list = []
-        for hits, burst in bursts:
+        for neg, burst in bursts:
             if burst is None:
-                plan_bursts.append((hits, None))
+                plan_bursts.append((neg, None))
                 key_groups.append(None)
                 continue
             tid, el, attrs, b, q_pos, mvec, epm, codes = burst
             groups = self._decide(el, b, q_pos, mvec, epm, codes, stats,
                                   pkey, audit)
-            plan_bursts.append((hits, (tid, el, attrs, b, q_pos, mvec, epm,
-                                       groups)))
+            plan_bursts.append((neg, (tid, el, attrs, b, q_pos, mvec, epm,
+                                      groups)))
             key_groups.append(tuple(map(tuple, groups)))
         if audit is not None:
             audit.note_pane(pkey, tuple(key_groups), comp=self.comp)
@@ -770,11 +785,12 @@ class PaneProcessor:
         adjacency, z columns, and count-round injection rows.  A burst's
         single-query groups are planned together by :meth:`_plan_singles`,
         its shared groups one at a time by :meth:`_plan_group`; the steps
-        keep the groups' order."""
+        keep the groups' order; a burst's ``_NegStep`` (built by the walk)
+        goes first."""
         steps: list = []
-        for hits, burst in plan_bursts:
-            if hits:
-                steps.append(_NegStep(hits))
+        for neg, burst in plan_bursts:
+            if neg is not None:
+                steps.append(neg)
             if burst is None:
                 continue
             tid, el, attrs, b, q_pos, mvec, epm, groups = burst
@@ -1087,6 +1103,7 @@ class PaneProcessor:
 
             for i, s in enumerate(steps):
                 if isinstance(s, _NegStep):
+                    stats.neg_gates += len(s.hits)
                     for qi, rule in s.hits:
                         if rule.kind == "leading":
                             gaterow[qi, :] = 0.0

@@ -235,7 +235,10 @@ class _CtxState:
         self.Zf = Z.reshape(len(jobs) * ctx.k * self.R, C)
 
     def apply_neg(self, row: int, hits) -> None:
+        """Gate job ``row``'s state rows of each hit's query; every gate
+        counts in that job's ``RunStats.neg_gates``."""
         nu, t = self.nu, self.t
+        self.jobs[row].stats.neg_gates += len(hits)
         for qi, rule in hits:
             if rule.kind == "leading":
                 self.Z[row, qi, 0, :] = 0.0
@@ -396,8 +399,14 @@ class FoldExecutor:
         for cid, cjobs in by_ctx.items():
             t_prep = perf_counter() if obs is not None else 0.0
             ctx = ctx_of[cid]
-            fp = self._build_plan(cjobs, [build_fold_schedule(ctx, j.steps)
-                                          for j in cjobs])
+            scheds = [build_fold_schedule(ctx, j.steps) for j in cjobs]
+            fp = self._build_plan(cjobs, scheds)
+            # each pane's rounds of the flush plan (its fold levels), and
+            # those that carry a negation gate: counts of the panes alone,
+            # so any K gives the same totals
+            for j, sc in zip(cjobs, scheds):
+                j.stats.fold_rounds += sc.n_levels
+                j.stats.neg_rounds += sum(1 for negs in sc.neg if negs)
             # flush-global dynamic S fills: one stacked column sum per
             # distinct burst length across every round of the flush —
             # bitwise equal per slice to the per-group ``coef.sum(axis=0)``
@@ -445,7 +454,7 @@ class FoldExecutor:
             MJ = st.assemble()
             for row, j in enumerate(cjobs):
                 j.M = MJ[row].copy()
-            del fp, sp, S_flat, st
+            del fp, sp, S_flat, st, scheds
             if obs is not None:
                 obs.step("finalize.wait", "finalize_wait_s", t_wait,
                          perf_counter())

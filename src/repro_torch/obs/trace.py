@@ -11,10 +11,11 @@ format so the output loads directly in Perfetto / ``chrome://tracing``:
   ``args`` ``{"flush": id, "panes": K, "pane_keys": [...]}``; the
   top-level host phases ``ingress`` and ``admit`` of the streaming layer;
   and the ``X`` *step* spans (category ``"step"``) inside the phases:
-  ``plan.prologue``, ``plan.decide``, ``plan.build``, ``execute.stage``,
-  ``execute.launch``, ``execute.wait``, ``finalize.prep``,
-  ``finalize.rounds``, ``finalize.wait`` and the collector's full passes,
-  ``gc``.  Every span of one flush carries its ``flush`` id in ``args``.
+  ``plan.prologue``, ``plan.edge``, ``plan.neg``, ``plan.decide``,
+  ``plan.build``, ``execute.stage``, ``execute.launch``, ``execute.wait``,
+  ``finalize.prep``, ``finalize.rounds``, ``finalize.wait`` and the
+  collector's full passes, ``gc``.  Every span of one flush carries its
+  ``flush`` id in ``args``.
 * ``tid >= 1`` is one track per sampled pane, keyed by
   ``(group, pane_t0)``: at K = 1 the ``X`` phase spans of the pane (and
   its step spans), the ``fold`` phase at any K, and ``i`` instant events

@@ -391,9 +391,9 @@ def test_minmax_matches_reference(K, backend):
 def _oracle_steps(proc, plan_bursts, stats):
     """The step list as ``_plan_group`` builds it, one call a group."""
     steps = []
-    for hits, burst in plan_bursts:
-        if hits:
-            steps.append(_NegStep(hits))
+    for neg, burst in plan_bursts:
+        if neg is not None:
+            steps.append(neg)
         if burst is None:
             continue
         tid, el, attrs, b, q_pos, mvec, epm, groups = burst
