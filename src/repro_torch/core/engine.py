@@ -48,7 +48,9 @@ A pane is processed in three engine phases plus the runtime's window fold:
    pane's steps are *levelized* (each per-query chain of graphlets — and
    its negation gates — stays strictly ordered; query-disjoint steps share
    a level) and every level folds as one stacked launch per shape bucket,
-   across the pane **and** across every pane of a micro-batch flush.  A
+   across the pane **and** across every pane of a micro-batch flush.  On
+   the torch/cuda backends each divergent graphlet is first collapsed, at
+   flush prep, to state-free ``S`` rows and folds like a d == 0 one.  A
    *scannable* flush plan (no negation splits, one d == 0 bucket per
    round) carries a compiled execution form: on the torch/cuda backends
    the whole flush is **one** logical device launch
@@ -309,6 +311,13 @@ class RunStats:
     neg_gates: int = 0
     neg_rounds: int = 0
     fold_rounds: int = 0
+    # the fold executor's divergent (d > 0) graphlets, and those it folded
+    # through a state-free ``S`` block built with the flush plan; its
+    # (context, flush) plans, and those that ran the scan program
+    div_graphlets: int = 0
+    div_collapsed: int = 0
+    fold_flushes: int = 0
+    scan_flushes: int = 0
     panes: int = 0
     windows_emitted: int = 0
     # four-phase wall-clock split (seconds) — the engine times itself so
@@ -1079,7 +1088,9 @@ class PaneProcessor:
 
         With a :class:`~repro_torch.core.fold_exec.FoldExecutor` attached the
         micro-batcher folds pending panes through it instead (stacked
-        per-shape launches, bitwise identical to this replay); this method
+        per-shape launches, bitwise identical to this replay on the np
+        backend; the device backends reassociate divergent graphlets' sums
+        through their collapsed ``S`` rows); this method
         remains the ``fold_exec=False`` oracle the differential suite pins
         the executor against."""
         t_f = perf_counter()

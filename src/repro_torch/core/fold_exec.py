@@ -37,7 +37,11 @@ slices run the identical axis-0 reduction, boolean masks, and ``np.where``
 selects of exactly-zero lanes.  The event-snapshot fill loop (rank-1 ``P``
 updates per divergent row) advances all bucket members one divergent row at
 a time; members are independent, so interleaving them is a no-op, and the
-per-row arithmetic keeps the sequential operand order.
+per-row arithmetic keeps the sequential operand order.  That loop is the
+np backend's; the device backends collapse each divergent graphlet at
+flush prep instead (:meth:`FoldExecutor._collapse`: the same sums,
+reassociated through one triangular solve a member), and it folds on the
+d == 0 path.
 
 Flush plan
 ----------
@@ -62,7 +66,8 @@ as one stacked launch set.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import functools
+from dataclasses import dataclass, field, replace
 from time import perf_counter
 
 import numpy as np
@@ -101,6 +106,9 @@ class _BucketTpl:
     start: np.ndarray      # [Nm] float64 start-flag (the f_c gate term)
     end: np.ndarray        # [Nm] bool end-flag (rrow rows)
     div: np.ndarray | None  # [ng, d] divergent row indices (None when d==0)
+    # [Nm, n_used, 1 + nu]: a collapsed divergent template's own ``S`` rows,
+    # one block a member (each member is its own group, d == 0)
+    s_eff: np.ndarray | None = None
 
 
 @dataclass
@@ -183,6 +191,45 @@ def build_fold_schedule(ctx, steps: list) -> FoldSchedule:
         buckets.append(out)
     return FoldSchedule(n_levels=n_levels, used=used, neg=neg,
                         buckets=buckets)
+
+
+def _split_collapsed(tpl: _BucketTpl, okg: np.ndarray, s_eff: np.ndarray,
+                     nu: int) -> list[_BucketTpl]:
+    """The divergent template ``tpl`` as its collapsed graphlets (``okg``:
+    d == 0, each member its own group with its ``S_eff`` block) and the rest,
+    which keep the row loop."""
+    okm = okg[tpl.gof]
+    out = []
+    if okm.any():
+        nm = int(okm.sum())
+        out.append(replace(
+            tpl, b=0, d=0, B_local=1 + nu, steps=[], ng=nm,
+            gof=np.arange(nm), div=None, s_eff=s_eff[okm], q=tpl.q[okm],
+            el=tpl.el[okm], ptm=tpl.ptm[okm], start=tpl.start[okm],
+            end=tpl.end[okm]))
+    if not okm.all():
+        bad = np.flatnonzero(~okg)
+        out.append(replace(
+            tpl, steps=[tpl.steps[g] for g in bad], ng=len(bad),
+            gof=np.searchsorted(bad, tpl.gof[~okm]), div=tpl.div[bad],
+            q=tpl.q[~okm], el=tpl.el[~okm], ptm=tpl.ptm[~okm],
+            start=tpl.start[~okm], end=tpl.end[~okm]))
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _collapse_index(nu: int, used: tuple, d: int) -> tuple:
+    """Index arrays of a collapsed system with ``d`` divergent rows, its
+    unknowns ordered ``(r, pos)``: each unknown's ``W`` column, the base row
+    its own term reads (``1 + used[pos]``), and the row of its count
+    (``(r, 0)``)."""
+    n_used = len(used)
+    ar = np.arange(d * n_used)
+    u = np.asarray(used)[ar % n_used]
+    out = (1 + nu + nu * (ar // n_used) + u, 1 + u, ar - ar % n_used)
+    for a in out:
+        a.setflags(write=False)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -272,8 +319,9 @@ class _MergedBucket:
     b: int                 # exact burst length (0 for d == 0: ragged)
     d: int
     used: tuple
-    gof: np.ndarray        # [Nm] member -> group ordinal (bucket-local)
-    gof_g: np.ndarray      # [Nm] member -> global S row (d == 0 fast path)
+    # d > 0: [Nm] member -> group ordinal (bucket-local); d == 0:
+    # [Nm * n_used] member-by-unit rows of the flush's ``s_flat``
+    gof: np.ndarray
     ptm: np.ndarray        # [Nm, t] pt_mask rows (float64)
     start: np.ndarray      # [Nm] start flags (float64; d > 0 only)
     flat_gq: np.ndarray    # [Nm] state-row gather (into Z2)
@@ -312,14 +360,26 @@ class _ScanProgram:
 
 
 @dataclass
+class _SRows:
+    """The flush's d == 0 ``S`` rows as ``_merge_bucket`` registers them:
+    ``n`` groups so far, static blocks ``(first group, [n, n_used, 1 + nu])``
+    and dynamic fills by burst length ``{b: [(group, (row, step idx))]}``."""
+
+    n: int = 0
+    static: list = field(default_factory=list)
+    dyn: dict = field(default_factory=dict)
+
+
+@dataclass
 class _FlushPlan:
     """Merged fold plan of one (ctx, flush): the K panes' schedules.
 
     ``s_flat`` holds one ``[n_used, 1 + nu]`` row block per d == 0 graphlet
-    of the whole flush; rows of trivial graphlets are pre-summed at build
-    time (their count coefficients are the injection rows), the rest are
-    filled by ``s_fill`` — one stacked column sum per
-    distinct burst length across *all* rounds.
+    of the whole flush, and one per member of a collapsed divergent
+    graphlet; rows of trivial graphlets are pre-summed at build time (their
+    count coefficients are the injection rows), collapsed ones are built
+    with the plan, the rest are filled by ``s_fill`` — one stacked column
+    sum per distinct burst length across *all* rounds.
 
     A *scannable* plan (every round: no negation steps, exactly one d == 0
     bucket) additionally carries a compiled execution form: ``scan`` (device
@@ -331,7 +391,7 @@ class _FlushPlan:
     s_fill: list           # [(global ordinals, [(state row, step idx)])]
     scan: _ScanProgram | None = None
     fast: list | None = None      # [(merged bucket, S_all row offset)]
-    fast_cat: np.ndarray | None = None   # concatenated gof_g of all rounds
+    fast_cat: np.ndarray | None = None   # concatenated gof of all rounds
     # fused form of ``s_fill``: (segment refs [(row, step, unit)], segment
     # start offsets, flat ordinals) — one concatenate + one reduceat per
     # flush instead of one stack + sum per distinct burst length
@@ -344,9 +404,10 @@ class FoldExecutor:
     ``submit`` queues one (pane, component) finalize; ``flush`` folds the
     whole backlog level by level, one stacked launch set per shape bucket
     per round, and deposits each job's transfer matrices on ``job.M``.
-    Results are bitwise identical to the sequential
+    On the np backend results are bitwise identical to the sequential
     :meth:`PaneProcessor.finalize` replay (pinned by
-    ``tests/test_fold_exec.py``).
+    ``tests/test_fold_exec.py``); the device backends collapse divergent
+    graphlets (``tests/test_torch_fold_collapse.py``).
     """
 
     def __init__(self, backend: str = "cuda", obs=None, device=None):
@@ -400,13 +461,18 @@ class FoldExecutor:
             t_prep = perf_counter() if obs is not None else 0.0
             ctx = ctx_of[cid]
             scheds = [build_fold_schedule(ctx, j.steps) for j in cjobs]
-            fp = self._build_plan(cjobs, scheds)
-            # each pane's rounds of the flush plan (its fold levels), and
-            # those that carry a negation gate: counts of the panes alone,
-            # so any K gives the same totals
+            # each pane's rounds of the flush plan (its fold levels), those
+            # that carry a negation gate, and its divergent graphlets:
+            # counts of the panes alone, so any K gives the same totals
             for j, sc in zip(cjobs, scheds):
                 j.stats.fold_rounds += sc.n_levels
                 j.stats.neg_rounds += sum(1 for negs in sc.neg if negs)
+                j.stats.div_graphlets += sum(
+                    tpl.ng for tpls in sc.buckets for tpl in tpls if tpl.d)
+            fp = self._build_plan(cjobs, scheds)
+            for s in {id(j.stats): j.stats for j in cjobs}.values():
+                s.fold_flushes += 1
+                s.scan_flushes += fp.scan is not None
             # flush-global dynamic S fills: one stacked column sum per
             # distinct burst length across every round of the flush —
             # bitwise equal per slice to the per-group ``coef.sum(axis=0)``
@@ -464,10 +530,11 @@ class FoldExecutor:
     def _build_plan(self, cjobs: list[FoldJob],
                     scheds: list[FoldSchedule]) -> _FlushPlan:
         ctx = cjobs[0].proc.ctx
+        if self.backend != "np":
+            self._collapse(ctx, cjobs, scheds)
         n_levels = max((sc.n_levels for sc in scheds), default=0)
         rounds: list[_Round] = []
-        s_rows: list = []        # per global d==0 group: None | static row
-        s_dyn: dict[int, list] = {}   # burst length -> [(ord, ref)]
+        s_rows = _SRows()
         for lv in range(n_levels):
             negs: list = []
             merged: dict[tuple, list] = {}
@@ -481,25 +548,25 @@ class FoldExecutor:
                         []).append((row, tpl, sc.used))
             rounds.append(_Round(
                 negs=negs,
-                buckets=[self._merge_bucket(ctx, cjobs, parts, s_rows, s_dyn)
+                buckets=[self._merge_bucket(ctx, cjobs, parts, s_rows)
                          for parts in merged.values()]))
         used = scheds[0].used if scheds else (0,)
         n_used = len(used)
         s_flat = None
         s_fill: list = []
-        if s_rows:
+        if s_rows.n:
             # flat [G * n_used, 1 + nu] layout: row g*n_used + pos holds
             # group g's column sums for used[pos]
-            s_flat = np.empty((len(s_rows) * n_used, 1 + ctx.nu))
-            for go, row in enumerate(s_rows):
-                if row is not None:
-                    s_flat[go * n_used:(go + 1) * n_used] = row
+            s_flat = np.empty((s_rows.n * n_used, 1 + ctx.nu))
+            for go, blk in s_rows.static:
+                s_flat[go * n_used:(go + len(blk)) * n_used] = \
+                    blk.reshape(-1, 1 + ctx.nu)
             # group the dynamic fills by (burst length, unit): each becomes
             # one flush-wide stacked column sum
             fill_refs: list = []
             fill_ords: list = []
             fill_lens: list = []
-            for b, entries in s_dyn.items():
+            for b, entries in s_rows.dyn.items():
                 ords = np.asarray([o for o, _ in entries], dtype=int)
                 refs = [r for _, r in entries]
                 for pos, u in enumerate(used):
@@ -518,6 +585,153 @@ class FoldExecutor:
             else:
                 self._build_fast(fp)
         return fp
+
+    # -- divergent graphlets collapsed to state-free S blocks --
+
+    def _collapse(self, ctx, cjobs: list[FoldJob],
+                  scheds: list[FoldSchedule]) -> None:
+        """Fold every divergent (d > 0) graphlet of the flush through its own
+        ``S`` rows: rewrite each d > 0 template of ``scheds`` into a d == 0
+        template carrying one ``[n_used, 1 + nu]`` block a member, which
+        then merges into its round's d == 0 bucket.
+
+        The snapshot fill (:meth:`_fill_snapshots`) is linear in the base
+        rows ``W[:, :1 + nu]`` (gate and ptm-weighted ``arow``, the only
+        rows that read the running state): its row loop is forward
+        substitution on a unit lower-triangular system per member, so the
+        snapshots are ``x = T @ W_base`` with ``T`` built from the plan
+        alone, and the bucket's ``S_m @ W`` is ``S_eff @ W_base``.  The same
+        sums, reassociated.  A graphlet whose system or ``S`` holds a
+        non-finite value keeps the row loop (a ``0 * inf`` in the solve
+        would write NaN where the loop's selects keep an inf), as does
+        every graphlet on the np backend, the bitwise twin of the
+        reference's stacked fold."""
+        shapes: dict[tuple, list] = {}
+        for row, sc in enumerate(scheds):
+            for lv, tpls in enumerate(sc.buckets):
+                for ti, tpl in enumerate(tpls):
+                    if tpl.d:
+                        shapes.setdefault((tpl.b, tpl.d), []).append(
+                            (row, lv, ti, tpl))
+        used = scheds[0].used
+        new: dict[tuple, dict] = {}      # (row, level) -> {tpl idx: tpls}
+        for (b, d), entries in shapes.items():
+            s_eff, ok = self._collapse_shape(ctx, cjobs, used, b, d,
+                                             [e[3] for e in entries],
+                                             [e[0] for e in entries])
+            m0 = g0 = 0
+            for row, lv, ti, tpl in entries:
+                okg = ok[g0:g0 + tpl.ng]
+                se = s_eff[m0:m0 + len(tpl.q)]
+                g0 += tpl.ng
+                m0 += len(tpl.q)
+                cjobs[row].stats.div_collapsed += int(okg.sum())
+                new.setdefault((row, lv), {})[ti] = _split_collapsed(
+                    tpl, okg, se, ctx.nu)
+        for (row, lv), by_ti in new.items():
+            sc = scheds[row]
+            sc.buckets[lv] = [t for ti, tpl in enumerate(sc.buckets[lv])
+                              for t in by_ti.get(ti, [tpl])]
+
+    @staticmethod
+    def _collapse_shape(ctx, cjobs: list[FoldJob], used: tuple, b: int,
+                        d: int, tpls: list, rows: list):
+        """``S_eff [Nm, n_used, 1 + nu]`` for every member of the divergent
+        templates ``tpls`` of one shape ``(b, d)`` (pane rows ``rows``), and
+        per graphlet whether it is finite.  One stacked pass; every member's
+        products are slices of one fixed shape, so a member's ``S_eff`` is
+        the same bits in any flush.
+
+        The unknowns ``x[(r, pos)]`` (divergent row r, unit ``used[pos]``,
+        the loop's fill order) solve ``(I - L) x = Cm``: row r's adjacency
+        ``rowf_r`` (zero where the row has no match) against the graphlet's
+        coefficients gives ``A = rowf @ coef[u]``; ``L`` is ``A`` at x's own
+        ``W`` columns, strictly below the diagonal, plus the ``v * f_c``
+        coupling of a sum to its row's count, and ``Cm`` is ``A`` at the
+        base rows plus the loop's own terms (``start * gate + arow[0]`` for
+        the count, ``arow[u]`` for a sum), all where the row matches."""
+        nu, n_used = ctx.nu, len(used)
+        N = d * n_used
+        steps, coefs = [], []
+        for row, tpl in zip(rows, tpls):
+            job = cjobs[row]
+            for si in tpl.steps:
+                steps.append(job.steps[si])
+                cjob, sjobs = job.jobs[si]
+                coefs.append(cjob.result)
+                coefs.extend(sjobs[u].result for u in used[1:])
+        G = len(steps)
+        CF = np.stack(coefs).reshape(G, n_used, b, -1)     # [G, n_used, b, B]
+        B = CF.shape[-1]
+        sizes = [len(s.g) for s in steps]
+        nmax = max(sizes)
+        gm = np.repeat(np.arange(G), sizes)         # member -> graphlet
+        div_g = np.stack([s.div_rows for s in steps])       # [G, d]
+        div = div_g[gm]                                     # [Nm, d]
+        mv = np.concatenate([s.mvec for s in steps]).astype(bool, copy=False)
+        nm = len(mv)
+        mfl = mv[np.arange(nm)[:, None], div]               # [Nm, d]
+        # each divergent row's in-burst adjacency: earlier, matched, and
+        # (edge predicates) admitted by the member's own mask; a row
+        # without a match snapshots zero (the loop's ``np.where``)
+        rowf = (np.arange(b) < div[:, :, None]) & mv[:, None, :]
+        rowf &= mfl[:, :, None]
+        epm = [e for s in steps for e in s.epm]
+        has = [i for i, e in enumerate(epm) if e is not None]
+        if has:
+            rowf[has] &= np.stack([epm[i] for i in has])[
+                np.arange(len(has))[:, None], div[has]]
+        # A = -rowf @ coef, one [d, b] x [b, n_used * B] product a member
+        # against its graphlet's coefficients (members padded to the
+        # largest graphlet); negated, so ``I - L`` is read from it in place
+        R = rowf * -1.0
+        padded = nm != G * nmax
+        if padded:
+            slot = np.concatenate([g * nmax + np.arange(n)
+                                   for g, n in enumerate(sizes)])
+            Rp = np.zeros((G * nmax, d, b))
+            Rp[slot] = R
+            R = Rp
+        A = np.matmul(R.reshape(G, nmax, d, b),
+                      CF.transpose(0, 2, 1, 3).reshape(G, 1, b, n_used * B))
+        A = A.reshape(G * nmax, N, B)
+        if padded:
+            A = A[slot]
+        fin = np.isfinite(A).all(axis=(1, 2))
+        if not fin.all():
+            A[~fin] = 0.0
+        # x's W columns: with every unit folded in order, one slice; the
+        # solve reads only the strict lower triangle of ``I - L``
+        cols, own, cnt = _collapse_index(nu, used, d)
+        IL = (A[:, :, 1 + nu:] if used == tuple(range(nu))
+              else A[:, :, cols])
+        Cm = -A[:, :, :1 + nu]                              # [Nm, N, 1 + nu]
+        mr = np.repeat(mfl, n_used, axis=1)                 # [Nm, N]
+        ar = np.arange(N)
+        Cm[:, ar, own] += mr
+        start = np.concatenate([tpl.start for tpl in tpls])
+        Cm[:, 0::n_used, 0] += start[:, None] * mfl
+        if n_used > 1:
+            # v * f_c: each sum unit's injection values at the divergent
+            # rows couple x[(r, pos)] to its row's count x[(r, 0)]
+            V = np.zeros((G, n_used, b))
+            for g, st in enumerate(steps):
+                su = dict(st.sum_units)
+                for pos, ui in enumerate(used[1:], 1):
+                    if su[ui] is not None:
+                        V[g, pos] = su[ui]
+            vv = np.take_along_axis(V, div_g[:, None, :], axis=2)[gm]
+            IL[:, ar, cnt] -= vv.transpose(0, 2, 1).reshape(nm, N) * mr
+        # LAPACK solves column-major slices: hand them over as such
+        T = torch.linalg.solve_triangular(
+            torch.from_numpy(np.ascontiguousarray(IL.transpose(0, 2, 1))).mT,
+            torch.from_numpy(np.ascontiguousarray(Cm.transpose(0, 2, 1))).mT,
+            upper=False, unitriangular=True).numpy()        # [Nm, N, 1 + nu]
+        S_m = CF.sum(axis=2)[gm]                            # [Nm, n_used, B]
+        S_eff = S_m[:, :, :1 + nu] + np.matmul(S_m[:, :, cols], T)
+        okm = fin & np.isfinite(S_eff).all(axis=(1, 2))
+        return S_eff, np.logical_and.reduceat(
+            okm, np.cumsum([0] + sizes[:-1]))
 
     @staticmethod
     def _scannable(ctx, fp: _FlushPlan) -> bool:
@@ -563,7 +777,7 @@ class FoldExecutor:
             nm = len(mb.flat_gq)
             GQ[r, :nm] = mb.flat_gq[:, None].astype(np.int64) * R + ar
             PTM[r, :nm] = mb.ptm
-            SIDX[r, :nm] = mb.gof_g.reshape(nm, n_used)
+            SIDX[r, :nm] = mb.gof.reshape(nm, n_used)
             SC[r, :nm * n_used] = mb.flat_sc
             if mb.flat_er is not None:
                 rows, em = mb.flat_er
@@ -598,16 +812,17 @@ class FoldExecutor:
         for rd in fp.rounds:
             mb = rd.buckets[0]
             rounds.append((mb, off))
-            off += len(mb.gof_g)
+            off += len(mb.gof)
         fp.fast = rounds
-        fp.fast_cat = np.concatenate([mb.gof_g for mb, _ in rounds])
+        fp.fast_cat = np.concatenate([mb.gof for mb, _ in rounds])
 
     def _merge_bucket(self, ctx, cjobs: list[FoldJob], parts: list,
-                      s_rows: list, s_dyn: dict) -> _MergedBucket:
+                      s_rows: "_SRows") -> _MergedBucket:
         _row0, tpl0, used = parts[0]
         n_used = len(used)
         k, nu, t = ctx.k, ctx.nu, len(ctx.pos_type_ids)
         R = 1 + nu * t + nu
+        u_arr = np.asarray(used, dtype=int)
         jm_p, q_p, gof_p, el_p, ptm_p, start_p, end_p, div_p = \
             [], [], [], [], [], [], [], []
         group_refs: list = []
@@ -616,21 +831,41 @@ class FoldExecutor:
             nm = len(tpl.q)
             jm_p.append(np.full(nm, row, dtype=int))
             q_p.append(tpl.q)
-            gof_p.append(tpl.gof + g_off)
             el_p.append(tpl.el)
             ptm_p.append(tpl.ptm)
             start_p.append(tpl.start)
             end_p.append(tpl.end)
             if tpl.d:
+                gof_p.append(tpl.gof + g_off)
                 div_p.append(tpl.div)
-            group_refs.extend((row, si) for si in tpl.steps)
-            g_off += tpl.ng
+                group_refs.extend((row, si) for si in tpl.steps)
+                g_off += tpl.ng
+                continue
+            # global S rows for the d == 0 fast path: a collapsed template
+            # brings its members' own blocks; trivial graphlets' count
+            # coefficients are their injection rows, so their column sums
+            # are pre-summed at build time; the rest register a dynamic
+            # fill.  ``gof`` holds the member-by-unit rows of ``s_flat``
+            base = s_rows.n
+            gof_p.append(((tpl.gof + base)[:, None] * n_used
+                          + np.arange(n_used)).ravel())
+            if tpl.s_eff is not None:
+                s_rows.static.append((base, tpl.s_eff))
+            else:
+                for go, si in enumerate(tpl.steps):
+                    step = cjobs[row].steps[si]
+                    if step.trivial and n_used == 1:
+                        s_rows.static.append(
+                            (base + go, step.base_c.sum(axis=0)[None, None]))
+                    else:
+                        s_rows.dyn.setdefault(step.b, []).append(
+                            (base + go, (row, si)))
+            s_rows.n += tpl.ng
         jm = np.concatenate(jm_p)
         q = np.concatenate(q_p)
-        gof = np.concatenate(gof_p)
         el = np.concatenate(el_p)
         end = np.concatenate(end_p)
-        u_arr = np.asarray(used, dtype=int)
+        gof = np.concatenate(gof_p)
         nm = len(q)
         # flat scatter indices into the fused state (member-major,
         # used-unit-minor — the accumulation order of the sequential replay)
@@ -644,27 +879,8 @@ class FoldExecutor:
         if em.any():
             flat_er = (sqr[em] + 1 + nu * t + su[em],
                        None if em.all() else em)
-
-        # global S rows for the d == 0 fast path: trivial graphlets' count
-        # coefficients are their injection rows, so their column sums
-        # are pre-summed at build time; the rest register a dynamic fill.
-        # ``gof_g`` expands to the member-by-unit row indices of ``s_flat``
-        gof_g = gof
-        if not tpl0.d:
-            base = len(s_rows)
-            gof_g = ((gof + base)[:, None] * n_used
-                     + np.arange(n_used)).ravel()
-            for go, (row, si) in enumerate(group_refs):
-                step = cjobs[row].steps[si]
-                if step.trivial and n_used == 1:
-                    s_rows.append(step.base_c.sum(axis=0)[None])
-                else:
-                    s_rows.append(None)
-                    s_dyn.setdefault(step.b, []).append(
-                        (base + go, (row, si)))
         return _MergedBucket(
-            B_local=tpl0.B_local, b=tpl0.b, d=tpl0.d, used=used,
-            gof=gof, gof_g=gof_g,
+            B_local=tpl0.B_local, b=tpl0.b, d=tpl0.d, used=used, gof=gof,
             ptm=np.ascontiguousarray(np.concatenate(ptm_p)),
             start=np.concatenate(start_p),
             flat_gq=jm * k + q, flat_sc=flat_sc, flat_er=flat_er,
@@ -748,7 +964,7 @@ class FoldExecutor:
             W[:, 1:1 + nu] = np.matmul(
                 mb.ptm[:, None, None, :],
                 zm[:, 1:1 + nu * t].reshape(nm, nu, t, C))[:, :, 0, :]
-        S_m = S_flat.take(mb.gof_g, axis=0).reshape(nm, n_used, mb.B_local)
+        S_m = S_flat.take(mb.gof, axis=0).reshape(nm, n_used, mb.B_local)
         upd = np.matmul(S_m, W).reshape(nm * n_used, C)
         # level construction guarantees the scatter targets are distinct:
         # plain fancy-indexed accumulation, no np.add.at needed
