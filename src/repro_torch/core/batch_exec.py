@@ -42,7 +42,8 @@ A flush stages every bucket, then launches every bucket, then fetches:
 with an ``obs`` attached these are its three steps, each timed once
 (``execute.stage``, ``execute.launch``, ``execute.wait``; see
 ``Observability.step``), with the bytes each device backend moves each
-way.  The unbatched legacy mode is timed only as the phase's total.
+way and, of those to the card, the masks'.  The unbatched legacy mode is
+timed only as the phase's total.
 """
 
 from __future__ import annotations
@@ -171,10 +172,11 @@ class PaneBatchExecutor:
         if self.backend != "np":
             # what the device backends copy: each base, and each mask in
             # the base's dtype (``ops.propagate_batched``)
-            obs.step_count("execute_h2d_bytes", sum(
-                base.nbytes + (0 if mask is None
-                               else mask.size * base.itemsize)
-                for _, _, _, base, mask in staged))
+            masks = sum(mask.size * base.itemsize
+                        for _, _, _, base, mask in staged if mask is not None)
+            obs.step_count("execute_h2d_bytes", masks + sum(
+                base.nbytes for _, _, _, base, _ in staged))
+            obs.step_count("execute_mask_bytes", masks)
             obs.step_count("execute_d2h_bytes", sum(h.nbytes for h in outs))
         # the flush's device outputs and pinned host copies are freed
         # inside the wait step, not after its clock stops

@@ -127,6 +127,21 @@ from .template import QueryTemplate, build_template
 __all__ = ["ComponentContext", "PaneProcessor", "PaneMicroBatcher",
            "HamletRuntime", "RunStats", "fold_panes", "vals_equal"]
 
+# a Kleene burst of this many rows or more counts as long
+# (``RunStats.long_kleene_rows``)
+LONG_BURST = 128
+# a window result holding a finite value this large counts as a large count
+# (``RunStats.large_count_windows``): past it the numpy and PyTorch
+# backends' Neumann doubling may leave float64
+LARGE_COUNT = 2.0 ** 512
+# a propagation problem of more rows than this counts as wide
+# (``RunStats.wide_propagate_cells``): past it the dense kernel's lanes hold
+# more than 16 runs, so their scan takes a fifth shuffle round, and the
+# masked kernel's chain runs nine 32-row tiles or more, so each updater
+# warp applies four panel blocks or more and its ring of three copy slots
+# wraps
+WIDE_ROWS = 256
+
 
 # --------------------------------------------------------------------------
 # static per-component context
@@ -161,6 +176,9 @@ class ComponentContext:
         self.relevant_lut = np.zeros(len(schema.types), dtype=bool)
         self.relevant_lut[self.relevant_type_ids] = True
         self.local = {e: i for i, e in enumerate(self.pos_type_ids)}
+        # types some query takes under Kleene+ (their bursts are counted
+        # in ``RunStats.kleene_rows``)
+        self.kleene_lut = np.any([t.kleene for t in self.templates], axis=0)
 
         units: set[tuple] = set()
         for q in queries:
@@ -294,6 +312,9 @@ class RunStats:
     snapshots_created: int = 0
     snapshots_propagated: int = 0
     propagate_cells: int = 0      # total solved cells (rows x basis cols)
+    # of those, the cells of problems launched with more than
+    # ``WIDE_ROWS`` rows
+    wide_propagate_cells: int = 0
     decisions: int = 0
     # decisions the policy evaluated fresh (a v1 memo miss, a v2 call);
     # the rest replayed from its memo
@@ -318,6 +339,13 @@ class RunStats:
     div_collapsed: int = 0
     fold_flushes: int = 0
     scan_flushes: int = 0
+    # rows of the Kleene bursts planned (a burst of a type some query
+    # takes under Kleene+), once a burst, and those of bursts of
+    # ``LONG_BURST`` rows or more; windows emitted with a finite value of
+    # at least ``LARGE_COUNT``
+    kleene_rows: int = 0
+    long_kleene_rows: int = 0
+    large_count_windows: int = 0
     panes: int = 0
     windows_emitted: int = 0
     # four-phase wall-clock split (seconds) — the engine times itself so
@@ -337,6 +365,7 @@ class RunStats:
     execute_launch_s: float = 0.0
     execute_wait_s: float = 0.0
     execute_h2d_bytes: int = 0
+    execute_mask_bytes: int = 0     # of the bytes to the card, b x b masks
     execute_d2h_bytes: int = 0
     finalize_prep_s: float = 0.0
     finalize_rounds_s: float = 0.0
@@ -377,7 +406,8 @@ class RunStats:
     STEP_FIELDS: ClassVar[tuple[str, ...]] = (
         "plan_prologue_s", "plan_decide_s", "plan_edge_s", "plan_neg_s",
         "plan_build_s", "execute_stage_s", "execute_launch_s",
-        "execute_wait_s", "execute_h2d_bytes", "execute_d2h_bytes",
+        "execute_wait_s", "execute_h2d_bytes", "execute_mask_bytes",
+        "execute_d2h_bytes",
         "finalize_prep_s", "finalize_rounds_s", "finalize_wait_s",
         "ingress_s", "admit_s", "gc_s", "gc_collections",
         "gc_full_collections")
@@ -457,16 +487,20 @@ class _GroupPlan:
 class _Prologue:
     """Order-independent phase-1 products of one pane, built for a whole
     micro-batch in one stacked pass by :meth:`PaneProcessor.plan_prologues`:
-    filtered events, burst runs, stacked match vectors, negation hits, and
-    (pattern-based policies only) per-type packed divergence codes —
+    filtered events, burst runs, stacked match vectors, negation hits,
+    (pattern-based policies only) per-type packed divergence codes, and
+    the rows of its Kleene bursts, all and long —
     everything :meth:`PaneProcessor._plan_finish` consumes that does not
     read mutable planner state."""
 
-    __slots__ = ("ev", "runs", "mv_type", "neg_type", "codes")
+    __slots__ = ("ev", "runs", "mv_type", "neg_type", "codes",
+                 "kleene_rows", "long_kleene_rows")
 
-    def __init__(self, ev, runs):
+    def __init__(self, ev, runs, kleene_rows, long_kleene_rows):
         self.ev = ev
         self.runs = runs
+        self.kleene_rows = kleene_rows
+        self.long_kleene_rows = long_kleene_rows
         self.mv_type: dict[int, np.ndarray] = {}
         self.neg_type: dict[int, list] = {}
         # tid -> [n_events] int64 coverage codes, sliced per burst by the
@@ -597,6 +631,12 @@ class PaneProcessor:
         pos = np.searchsorted(cuts, kb)  # pane bounds are all in cuts
         cuts_l = cuts.tolist()
         tids_l = (ktype[cuts[:-1]].tolist() if len(ktype) else [])
+        # the rows of each pane's Kleene bursts, all and long: prefix sums
+        # over the flush's runs, read at the panes' run bounds
+        krows = np.where(ctx.kleene_lut[ktype[cuts[:-1]]], np.diff(cuts), 0)
+        kcum = np.cumsum(np.concatenate([[0], krows]))[pos].tolist()
+        lcum = np.cumsum(np.concatenate(
+            [[0], np.where(krows >= LONG_BURST, krows, 0)]))[pos].tolist()
         # each pane's filtered view is a zero-copy row slice of the
         # pane-major gather (panes were validated at construction, so the
         # dataclass re-validation in select() is skipped).  These views
@@ -614,7 +654,8 @@ class PaneProcessor:
             base = cuts_l[pos[i]]
             pros.append(_Prologue(ev, [
                 (tids_l[j], slice(cuts_l[j] - base, cuts_l[j + 1] - base))
-                for j in range(pos[i], pos[i + 1])]))
+                for j in range(pos[i], pos[i + 1])],
+                kcum[i + 1] - kcum[i], lcum[i + 1] - lcum[i]))
         # stacked predicate pass over each type's concatenated events,
         # split back per pane at the type's pane bounds
         for tid in sorted(set(tids_l)):
@@ -663,6 +704,8 @@ class PaneProcessor:
         stats.panes += 1
         runs = pro.runs
         stats.bursts += len(runs)
+        stats.kleene_rows += pro.kleene_rows
+        stats.long_kleene_rows += pro.long_kleene_rows
         if not runs:
             return []
         neg_type = pro.neg_type
@@ -1036,6 +1079,8 @@ class PaneProcessor:
                     cjob = PropagateJob(base, None, result=base)
                 else:
                     cjob = ex.submit(base, None if p.dense else p.em)
+                    if p.b > WIDE_ROWS:
+                        stats.wide_propagate_cells += p.b * p.B_local
                 jobs[i] = (cjob, {})
                 stats.propagate_cells += p.b * p.B_local
         else:
@@ -1050,6 +1095,8 @@ class PaneProcessor:
                     else:
                         sjobs[ui] = ex.submit(base,
                                               None if p.dense else p.em)
+                        if p.b > WIDE_ROWS:
+                            stats.wide_propagate_cells += p.b * p.B_local
                     stats.propagate_cells += p.b * p.B_local
 
     # -- phase 2 helpers: injection rows for the batched launches --
@@ -1615,6 +1662,8 @@ class HamletRuntime:
                     self.workload.schema, q, evs, agg,
                     run_type_ids=ctx.relevant_type_ids, pane=self.pane,
                     backend=self.backend, device=self.device)
+        if any(LARGE_COUNT <= v < np.inf for v in vals.values()):
+            self.stats.large_count_windows += 1
         return vals
 
     # -- Or/And combination (Sec. 5) --

@@ -236,16 +236,19 @@ def test_collect_keys_match_reference():
     # the port's step clocks, its count of fresh sharing decisions, its
     # event-level snapshot counters, its count of flushes drained with
     # the collector held off, its count of graphlets the stacked pass
-    # planned, its negation-gate and fold-round counters and its fold
-    # executor's divergent-graphlet and flush counters are its own
-    # RunStats fields
+    # planned, its negation-gate and fold-round counters, its fold
+    # executor's divergent-graphlet and flush counters, and its counts of
+    # Kleene burst rows, of windows past 2^512 and of the cells of wide
+    # propagation problems are its own RunStats fields
     assert ref_only_engine <= want["engine"].keys()
     assert got["engine"].keys() == \
         (want["engine"].keys() - ref_only_engine) | set(RunStats.STEP_FIELDS) \
         | {"decide_evals", "edge_mask_cells", "shared_rows", "snapshot_rows",
            "gc_held_flushes", "stacked_graphlets", "neg_gates",
            "neg_rounds", "fold_rounds", "div_graphlets", "div_collapsed",
-           "fold_flushes", "scan_flushes"}
+           "fold_flushes", "scan_flushes", "kleene_rows",
+           "long_kleene_rows", "large_count_windows",
+           "wide_propagate_cells"}
     assert "fold_exec.flush_plan.misses" in want["metrics"]
     assert got["metrics"].keys() == want["metrics"].keys() - ref_only_metrics
     assert got["audit"] == want["audit"]
